@@ -2,20 +2,25 @@
 
 Replaces the Pallas TPU kernel ``ray_tpu/ops/flash_attention.py``
 (``_flash_kernel`` through ``_flash_forward`` and the ``flash_attention``
-custom_vjp) with the hand-written CUDA kernel
-``ray_tpu_torch/csrc/flash_attention.cu``: one thread block per
-(64-row query tile, head, batch) loops over 64-row kv tiles staged in
-shared memory with an fp32 online softmax, and stops at the diagonal
-tile for causal attention.  Long causal prefill is bound by operations;
-this first kernel runs its products on the fp32 CUDA cores, not the
-tensor cores.
+custom_vjp) with the hand-written CUDA kernels of
+``ray_tpu_torch/csrc/flash_attention.cu``.  bf16 runs on the tensor
+cores: one warp-specialised block per (128-row query tile, head, batch),
+a producer warp streaming K/V tiles with TMA through an mbarrier ring
+and two consumer warpgroups running both products on ``wgmma`` with an
+fp32 online softmax in registers.  fp32 keeps the CUDA-core kernel
+(``wgmma`` would take fp32 only as TF32).  Both stop at the diagonal
+tile for causal attention.
+
+The bf16 kernel rounds the probabilities P to bf16 on their way into
+the P.V product; :func:`p_rounding_allowance` bounds what that costs.
 
 The backward is not a kernel, as in the reference: it recomputes through
 the port's ``dense_attention``.
 
 Layout: q [B, S, H, D]; k/v [B, T, Hkv, D] (GQA groups = H // Hkv).  The
-kernel takes D in {64, 128} and S, T multiples of 64, in bfloat16 or
-float32; the output is in q's dtype.
+kernels take D in {64, 128} and S, T multiples of 64, in bfloat16 or
+float32, with 16-byte aligned data pointers (TMA's rule; the wrapper
+raises rather than copy); the output is in q's dtype.
 
 On CPU tensors :func:`flash_attention` computes the plain version
 :func:`flash_attention_ref`; on CUDA tensors it launches the kernel or
@@ -46,11 +51,8 @@ def load_kernel():
     return _build.function(_SOURCE, "rt_flash_attention", _ARGTYPES)
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """The plain PyTorch version of the kernel's function: fp32 scores,
-    softmax and probabilities (the kernel never rounds P to the input
-    type), output cast to q's dtype."""
+def _probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """fp32 softmax(q k^T / sqrt(D)) as [B, Hkv, G, S, T]."""
     b, s, h, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     qf = q.float().reshape(b, s, hkv, h // hkv, d)
@@ -58,9 +60,31 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         keep = torch.ones((s, t), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~keep, -1e30)
-    probs = torch.softmax(scores, dim=-1)
+    return torch.softmax(scores, dim=-1)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of the kernel's function, as the JAX
+    kernel computes it: fp32 scores, softmax and probabilities, output
+    cast to q's dtype.  (The bf16 CUDA kernel rounds P to bf16 before
+    P.V; see :func:`p_rounding_allowance`.)"""
+    b, s, h, d = q.shape
+    probs = _probs(q, k, causal)
     out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def p_rounding_allowance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """Per output element, a bound on what rounding P to bf16 moves it:
+    2^-8 * (softmax(S) . |V|), from the plain version's fp32 softmax.
+    Each p moves by at most 2^-8 of itself (half a bf16 step), weighted
+    by the |v| it multiplies.  [B, S, H, D] fp32."""
+    b, s, h, d = q.shape
+    probs = _probs(q, k, causal)
+    mag = torch.einsum("bhgst,bthd->bshgd", probs, v.float().abs())
+    return mag.reshape(b, s, h, d) * 2.0 ** -8
 
 
 def _check(q, k, v):
@@ -88,6 +112,9 @@ def _check(q, k, v):
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"loads tiles with TMA)")
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+torch.set_num_threads(2)   # six xdist workers share the test machine
+
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "ray_tpu_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py"]

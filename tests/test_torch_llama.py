@@ -23,6 +23,7 @@ from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models.convert import params_from_flax
 
 force_cpu_jax()
+torch.set_num_threads(2)   # six xdist workers share the test machine
 
 MODEL = {"vocab_size": 64, "dim": 32, "n_layers": 2, "n_heads": 4,
          "n_kv_heads": 2, "hidden_dim": 64, "max_seq_len": 64}

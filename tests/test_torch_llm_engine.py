@@ -27,6 +27,7 @@ from ray_tpu_torch.ops import paged_attention as tpa
 from ray_tpu_torch.serve.llm import LLMEngine, LLMOverloadedError
 
 force_cpu_jax()
+torch.set_num_threads(2)   # six xdist workers share the test machine
 
 MODEL = {"vocab_size": 64, "dim": 32, "n_layers": 2, "n_heads": 4,
          "n_kv_heads": 2, "hidden_dim": 64, "max_seq_len": 64}

@@ -21,6 +21,7 @@ from ray_tpu_torch.ops import flash_attention as tfa
 from ray_tpu_torch.ops import paged_attention as tpa
 
 force_cpu_jax()
+torch.set_num_threads(2)   # six xdist workers share the test machine
 
 # fp32 parity: the same math in another summation order
 RTOL = ATOL = 1e-5
@@ -179,6 +180,40 @@ def test_paged_ref_bf16_within_one_rounding():
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("span_pages,ctx_lens,alias", [
+    (1, [5, 16, 0, 13], False),    # spans of one page; a lane at ctx 0
+    (3, [31, 8, 24, 2], False),    # several pages; 24 ends on a span edge
+    (16, [9, 4, 0, 3], False),     # one span wider than every context
+    (2, [16, 16, 7, 0], True),     # lanes 0 and 1 alias their pages
+])
+def test_paged_split_merge_matches_ref_and_jax(span_pages, ctx_lens, alias):
+    """The split kernel's plain version over page spans, merged by the
+    merge's plain version, equals the unsplit plain version and the JAX
+    kernel (interpret mode) in fp32; a lane with context 0 is exactly
+    zero."""
+    page_size = 4
+    rng = np.random.default_rng(span_pages * 10 + len(ctx_lens))
+    q, pk, pv, bt, cl = _rand_paged_case(rng, len(ctx_lens), ctx_lens, 8, 2,
+                                         head_dim=16, page_size=page_size,
+                                         num_pages=32)
+    if alias:
+        bt[1] = bt[0]
+    span = span_pages * page_size
+    total = bt.shape[1] * page_size
+    args = (_t(q), _t(pk), _t(pv), _t(bt), _t(cl))
+    parts = [tpa.paged_partials_ref(*args, page_size=page_size, start=lo,
+                                    stop=lo + span)
+             for lo in range(0, total, span)]
+    out = tpa.paged_merge_ref(parts).numpy()
+    np.testing.assert_allclose(out, _port_paged(q, pk, pv, bt, cl, page_size),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out, _jax_paged(q, pk, pv, bt, cl, page_size),
+                               rtol=RTOL, atol=ATOL)
+    for lane, n in enumerate(ctx_lens):
+        if n == 0:
+            assert np.all(out[lane] == 0)
+
+
 @pytest.mark.parametrize("bad,exc", [
     (None, None),
     ("q_seq", ValueError), ("pool_shape", ValueError),
@@ -186,6 +221,7 @@ def test_paged_ref_bf16_within_one_rounding():
     ("dtype", TypeError), ("index_dtype", TypeError),
     ("table_rows", ValueError), ("contiguous", ValueError),
     ("head_dim", ValueError), ("misaligned", ValueError),
+    ("group", ValueError),
 ])
 def test_paged_wrapper_checks(bad, exc):
     """What the kernel does not take is refused before any launch."""
@@ -217,6 +253,8 @@ def test_paged_wrapper_checks(bad, exc):
             pv[..., :16].clone()
     elif bad == "misaligned":
         pk = torch.zeros(16 * 2 * d + 1)[1:].view(16, 2, d)
+    elif bad == "group":
+        q = torch.zeros(2, 1, 18, d)    # 9 query heads per kv head
     if exc is None:
         tpa._check(q, pk, pv, bt, cl, ps)
         return
@@ -290,6 +328,22 @@ def test_flash_autograd_only_requested_grads():
     q.requires_grad_()
     tfa.flash_attention(q, k, v, True).sum().backward()
     assert q.grad is not None and k.grad is None and v.grad is None
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_p_rounding_allowance_bounds_bf16_p(causal):
+    """Rounding P to bf16 before P.V (as the bf16 kernel does) moves each
+    output by no more than p_rounding_allowance."""
+    q, k, v = (_t(x) for x in _qkv(s=128, d=64, seed=4))
+    probs = tfa._probs(q, k, causal)
+    b, s, h, d = q.shape
+    rounded = torch.einsum("bhgst,bthd->bshgd",
+                           probs.bfloat16().float(), v).reshape(b, s, h, d)
+    exact = tfa.flash_attention_ref(q, k, v, causal)
+    allow = tfa.p_rounding_allowance(q, k, v, causal)
+    err = (rounded - exact).abs()
+    assert bool((err <= allow + 1e-6).all())
+    assert float(err.max()) > 0   # the rounding is real, not a no-op
 
 
 @pytest.mark.parametrize("shape,exc", [
