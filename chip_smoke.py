@@ -13,9 +13,15 @@ forward at ``llama3_8b`` width
 kernel, serves a few requests through the continuous-batching engine at
 that width through the paged-decode kernel, and checks greedy fp32
 decoding token for token against the no-cache forward and the dense
-decode path.  Each phase prints one JSON line; a failed check raises, so
-the script exits non-zero.  The last lines are the card's name and power
-limit (from nvidia-smi), then {"ok": true, "device": {...}}.
+decode path.  Then it trains: ``LlamaConfig.bench_1b()`` with remat, bf16
+compute over fp32 master weights, on a one-device mesh, batch 8 x 1024
+tokens (the flash kernel forward, the dense-recompute backward, AdamW),
+and reports step time, tokens/s and MFU; holds one train step through
+flash against one through dense attention at 2 layers of that width;
+and saves, restores and resumes a train state on the card.  Each phase
+prints one JSON line; a failed check raises, so the script exits
+non-zero.  The last lines are the card's name and power limit (from
+nvidia-smi), then {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -257,7 +264,8 @@ def phase_kernel_paged(gen) -> dict:
 def phase_kernel_flash(gen) -> dict:
     rows = {}
     cases = [("8b_prefill", 2, 2048, 32, 8, 128),
-             ("entry_small", 8, 512, 12, 4, 64)]
+             ("entry_small", 8, 512, 12, 4, 64),
+             ("train_1b", 8, 1024, 12, 4, 128)]
     for label, b, s, h, hkv, d in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, s, h, d), generator=gen,
@@ -529,6 +537,268 @@ def phase_serve_identity() -> None:
     torch.cuda.empty_cache()
 
 
+# The train phase's MFU: 6 * params * tokens/s over the peak, the
+# definition of bench.py's train bench, with the H100's dense bf16 peak.
+MFU_DEFINITION = "6 * param_count * tokens_per_s / 989e12 (H100 dense bf16)"
+TRAIN_SHAPE = (8, 1024)     # batch x sequence, as bench.py's train bench
+GEMM_KEYS = ("gemm", "gemv", "cutlass", "nvjet", "sm90_xmma")
+
+
+def _train_state(cfg, seed: int, **kw):
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.train.gspmd import build_llama_train_state
+
+    mesh = make_mesh(MeshSpec(dp=-1))
+    params, opt, step_fn, _ = build_llama_train_state(
+        cfg, mesh, rng_seed=seed, batch_size=TRAIN_SHAPE[0],
+        seq_len=TRAIN_SHAPE[1], **kw)
+    return mesh, params, opt, step_fn
+
+
+def _train_tokens(cfg, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, TRAIN_SHAPE).astype(np.int32)
+
+
+def train_step_profile(step_fn, params, opt, tokens) -> dict:
+    """One train step under torch.profiler: device ms by kernel family
+    (GEMMs, the flash kernel, the optimizer's multi-tensor kernels, the
+    rest), the device time of the dense-recompute attention backward
+    (the kernels under autograd's evaluation of the
+    ``_FlashAttentionBackward`` node) and of ``opt.step``, and the host
+    wall time.  Device figures are None when the profiler records no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {"gemm": 0.0, "flash_kernel": 0.0, "optimizer_kernels": 0.0,
+           "rest": 0.0}
+    launches = 0
+    under = {"flash_backward_dense": 0.0, "optimizer_step": 0.0}
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False):
+                continue    # a named range on the device timeline
+            launches += 1
+            ms = e.time_range.elapsed_us() / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            name = e.name.lower()
+            if "flash_fwd" in name:
+                fam["flash_kernel"] += ms
+            elif any(k in name for k in GEMM_KEYS):
+                fam["gemm"] += ms
+            elif "multi_tensor_apply" in name:
+                fam["optimizer_kernels"] += ms
+            else:
+                fam["rest"] += ms
+        elif e.name == ("autograd::engine::evaluate_function: "
+                        "_FlashAttentionBackward"):
+            # the node's own event nests inside this range: count one
+            under["flash_backward_dense"] += e.device_time_total / 1e3
+        elif e.name.startswith("Optimizer.step#"):
+            under["optimizer_step"] += e.device_time_total / 1e3
+    device_ms = sum(fam.values())
+    if not launches:
+        return {"wall_ms": wall_ms, "device_ms": None}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "device_ms_by_family": fam, "device_ms_under": under,
+            "kernel_launches": launches,
+            "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+
+
+def phase_train() -> int:
+    """The single-card training path at the repo's training width, as
+    bench.py's train bench drives the JAX package: bench_1b with remat,
+    bf16 compute over fp32 master weights, a one-device mesh, one fixed
+    batch of 8 x 1024 tokens, 3 warm-up steps and 12 timed steps, each
+    ended by a synchronize."""
+    import dataclasses
+
+    from ray_tpu_torch.parallel import shard_batch
+    from ray_tpu_torch.train.gspmd import param_count
+
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(), remat=True)
+    warmup, steps = 3, 12
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh, params, opt, step_fn = _train_state(cfg, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(all(p.dtype == torch.float32 for p in params.parameters()),
+          "train: weights are not fp32 master weights")
+    tokens = shard_batch(mesh, _train_tokens(cfg, SEED))  # placed once
+    losses, step_s = [], []
+    fa.LAUNCHES = 0
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, tokens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(loss))
+        if i >= warmup:
+            step_s.append(dt)
+    launches = fa.LAUNCHES
+    per_step = launches / (warmup + steps)
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(per_step == 2 * cfg.n_layers,
+          f"flash launches per step {per_step} != 2 x {cfg.n_layers}")
+    n_params = param_count(params)
+    median_s = statistics.median(step_s)
+    tokens_per_s = TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / median_s
+    mfu = 6 * n_params * tokens_per_s / PEAK_FLOPS_PER_S[torch.bfloat16]
+    peak_bytes = torch.cuda.max_memory_allocated()
+    profile = train_step_profile(step_fn, params, opt, tokens)
+    emit("train", config="bench_1b", n_layers=cfg.n_layers, remat=True,
+         compute_dtype="bfloat16", param_dtype="float32",
+         mesh=mesh.shape, tokens=list(TRAIN_SHAPE), params=n_params,
+         optimizer="AdamW(lr 3e-4, betas (0.9, 0.999), eps 1e-8, wd 1e-4)",
+         init_s=init_s, warmup_steps=warmup, timed_steps=steps,
+         step_s_median=median_s, step_s=step_s, tokens_per_s=tokens_per_s,
+         mfu=mfu, mfu_definition=MFU_DEFINITION, loss_first=losses[0],
+         loss_last=losses[-1], losses=losses, flash_launches=launches,
+         flash_launches_per_step=per_step, max_memory_allocated=peak_bytes,
+         device_ms_over_median_step=(
+             profile["device_ms"] / (median_s * 1e3)
+             if profile["device_ms"] else None),
+         step_profile=profile)
+    del params, opt, step_fn, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
+# train_identity: the flash step's loss against the dense step's, and
+# each parameter's gradient, |g_flash - g_dense| / |g_dense| in L2 norm.
+# Both compute in bf16: the flash kernel rounds P to bf16 inside an online
+# softmax, dense attention rounds the normalised probabilities to bf16, so
+# the attention outputs differ by about one bf16 step and the gradients,
+# computed in bf16 through two layers, inherit it: at this width on the
+# CPU (flash's plain version against dense, batch 1) the losses differed
+# by 5e-5 and the gradients by 1.4% (median over parameters) to 2.2%
+# (layer 1's wk).  A wrong kernel moves them by order one.  The phase also
+# reports how far bf16 itself moves the gradients: dense bf16 against a
+# dense fp32 step from the same weights.
+IDENTITY_LOSS_REL = 2e-3
+IDENTITY_GRAD_REL = 5e-2
+
+
+def phase_train_identity() -> None:
+    """bench_1b width cut to 2 layers, bf16, S = 1024, from one seed:
+    one train step with attention through the flash kernel, one with
+    ``attention_kernel=dense_attention``; losses and gradients agree."""
+    import dataclasses
+
+    from ray_tpu_torch.models.llama import dense_attention
+
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(), n_layers=2,
+                              remat=True)
+    tokens = _train_tokens(cfg, SEED + 2)
+    fp32 = dataclasses.replace(cfg, dtype=torch.float32)
+    runs = {}
+    for name, c, kernel in (("flash", cfg, None),
+                            ("dense", cfg, dense_attention),
+                            ("dense_fp32", fp32, dense_attention)):
+        _mesh, params, opt, step_fn = _train_state(c, SEED + 2,
+                                                   attention_kernel=kernel)
+        before = fa.LAUNCHES
+        params, opt, loss = step_fn(params, opt, tokens)
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), fa.LAUNCHES - before,
+                      {n: p.grad for n, p in params.named_parameters()})
+        del params, opt, step_fn
+    (lf, nf, gf), (ld, nd, gd) = runs["flash"], runs["dense"]
+    check(nf == 2 * cfg.n_layers and nd == 0,
+          f"identity: flash launches {nf} / dense {nd}")
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in b}
+
+    loss_rel = abs(lf - ld) / abs(ld)
+    grad_rel = rel(gf, gd)
+    bf16_rel = rel(gd, runs["dense_fp32"][2])
+    worst = max(grad_rel, key=grad_rel.get)
+    check(math.isfinite(lf) and loss_rel <= IDENTITY_LOSS_REL,
+          f"identity: loss {lf} vs dense {ld}")
+    check(grad_rel[worst] <= IDENTITY_GRAD_REL,
+          f"identity: grad of {worst} differs by {grad_rel[worst]}")
+    emit("train_identity", config="bench_1b width, 2 layers, bf16",
+         tokens=list(TRAIN_SHAPE), loss_flash=lf, loss_dense=ld,
+         loss_rel=loss_rel, loss_rel_bound=IDENTITY_LOSS_REL,
+         grad_rel_max=grad_rel[worst], grad_rel_worst_param=worst,
+         grad_rel_median=statistics.median(grad_rel.values()),
+         grad_rel_bound=IDENTITY_GRAD_REL, flash_launches=nf,
+         loss_dense_fp32=runs["dense_fp32"][0],
+         bf16_vs_fp32_grad_rel_max=max(bf16_rel.values()),
+         bf16_vs_fp32_grad_rel_median=statistics.median(bf16_rel.values()))
+    del runs, gf, gd
+    torch.cuda.empty_cache()
+
+
+# After a restore the first step's loss comes from the saved weights
+# alone; the next depends on a backward whose embedding gradient sums
+# with atomics on the card, so it is held within a tolerance.
+RESUME_LOSS_REL = 1e-3
+
+
+def phase_train_checkpoint() -> None:
+    """Save a train state (weights, Adam moments, step) after step 1,
+    take steps 2 and 3; restore into a fresh model and optimizer and
+    take steps 2 and 3 again; the losses agree."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.train import restore_checkpoint, save_checkpoint
+
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(), n_layers=2,
+                              remat=True)
+    tokens = _train_tokens(cfg, SEED + 3)
+    _mesh, params, opt, step_fn = _train_state(cfg, SEED + 3)
+    params, opt, _ = step_fn(params, opt, tokens)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(os.path.join(tmp, "ck"), {
+            "model": params.state_dict(), "opt": opt.state_dict(),
+            "step": 1})
+        save_s = time.perf_counter() - t0
+        straight = [float(step_fn(params, opt, tokens)[2])
+                    for _ in range(2)]
+        del params, opt, step_fn
+        _mesh, params, opt, step_fn = _train_state(cfg, SEED + 4)
+        t0 = time.perf_counter()
+        state = restore_checkpoint(path)
+        params.load_state_dict(state["model"])
+        opt.load_state_dict(state["opt"])
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+    check(state["step"] == 1, "checkpoint: step")
+    check(all(p.dtype == torch.float32 for p in params.parameters()),
+          "checkpoint: weights")
+    resumed = [float(step_fn(params, opt, tokens)[2]) for _ in range(2)]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, straight)]
+    check(max(rel) <= RESUME_LOSS_REL,
+          f"resume: losses {resumed} vs {straight}")
+    emit("train_checkpoint", config="bench_1b width, 2 layers, bf16",
+         saved_after_step=1, losses_straight=straight,
+         losses_resumed=resumed, loss_rel=rel,
+         loss_rel_bound=RESUME_LOSS_REL,
+         bitwise=[a == b for a, b in zip(resumed, straight)],
+         checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s)
+    del params, opt, step_fn, state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -542,6 +812,9 @@ def main() -> int:
     flash_launches = phase_forward(gen)
     paged_launches = phase_serve()
     phase_serve_identity()
+    flash_launches += phase_train()
+    phase_train_identity()
+    phase_train_checkpoint()
     kernels = []
     for name, row, launches, source, replaces in (
             ("flash_attention", flash, flash_launches,

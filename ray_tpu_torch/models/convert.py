@@ -37,8 +37,9 @@ def _linear(kernel: Any, n_in: int) -> torch.Tensor:
 
 def params_from_flax(tree: Mapping[str, Any],
                      cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """State dict of :class:`LlamaModel` (fp32 CPU tensors; loading
-    casts the linear and embedding weights to ``cfg.dtype``)."""
+    """State dict of :class:`LlamaModel` (fp32 CPU tensors; loading casts
+    them to the model's weight dtype: ``cfg.dtype``, or fp32 for a model
+    built with ``param_dtype=torch.float32``)."""
     hd = cfg.head_dim
     sd = {"embed.weight": _t(tree["embed"]["embedding"]),
           "final_norm.scale": _t(tree["final_norm"]["scale"]),

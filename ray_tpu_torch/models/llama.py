@@ -13,9 +13,14 @@ public functions:
     the dense gather ``cached_attention`` (chunked prefill, dense decode).
 
 The flax model keeps fp32 params and casts each kernel to ``cfg.dtype``
-before its dot (and the embedding before its lookup).  This module holds
-those weights in ``cfg.dtype`` once, which gives identical numbers; only
-the RMSNorm scales stay fp32, as flax multiplies by them in fp32.
+before its dot (and the embedding before its lookup).  By default this
+module holds those weights in ``cfg.dtype`` once, which gives identical
+forward numbers and is what serving wants.  Training passes
+``param_dtype=torch.float32``: the linear and embedding weights are then
+fp32 master weights, each cast to ``cfg.dtype`` before its product and
+the embedding rows after their lookup, so the optimizer steps them in
+fp32 as optax does.  The RMSNorm scales are fp32 either way, as flax
+multiplies by them in fp32.
 Pools are updated in place (``index_copy_``) where the JAX engine
 donated them to jit.
 """
@@ -181,22 +186,45 @@ class RMSNorm(nn.Module):
         return (xf * torch.rsqrt(var + self.eps) * self.scale).to(x.dtype)
 
 
-def _linear(cfg: LlamaConfig, n_in: int, n_out: int, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, dtype=cfg.dtype, device=device)
+class Linear(nn.Linear):
+    """A bias-free ``nn.Linear`` that computes in ``dtype``.  A weight
+    held in another dtype (``param_dtype``, fp32 master weights) is cast
+    before the product, as flax casts each kernel before its dot; a
+    weight held in ``dtype`` is used as it is."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(n_in, n_out, bias=False,
+                         dtype=param_dtype or dtype, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if w.dtype != self.compute_dtype:
+            w = w.to(self.compute_dtype)
+        return F.linear(x, w)
+
+
+def _linear(cfg: LlamaConfig, n_in: int, n_out: int, device,
+            param_dtype: Optional[torch.dtype]) -> Linear:
+    return Linear(n_in, n_out, cfg.dtype, param_dtype, device)
 
 
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, kernel: Optional[Callable] = None,
-                 page_size: int = 0, device=None):
+                 page_size: int = 0, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.cfg = cfg
         self.kernel = kernel        # pluggable attention (flash/ring)
         self.page_size = page_size  # > 0 enables the paged decode kernel
         hd = cfg.head_dim
-        self.wq = _linear(cfg, cfg.dim, cfg.n_heads * hd, device)
-        self.wk = _linear(cfg, cfg.dim, cfg.n_kv_heads * hd, device)
-        self.wv = _linear(cfg, cfg.dim, cfg.n_kv_heads * hd, device)
-        self.wo = _linear(cfg, cfg.n_heads * hd, cfg.dim, device)
+        self.wq = _linear(cfg, cfg.dim, cfg.n_heads * hd, device, param_dtype)
+        self.wk = _linear(cfg, cfg.dim, cfg.n_kv_heads * hd, device,
+                          param_dtype)
+        self.wv = _linear(cfg, cfg.dim, cfg.n_kv_heads * hd, device,
+                          param_dtype)
+        self.wo = _linear(cfg, cfg.n_heads * hd, cfg.dim, device, param_dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
@@ -238,11 +266,12 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.w1 = _linear(cfg, cfg.dim, cfg.hidden_dim, device)
-        self.w3 = _linear(cfg, cfg.dim, cfg.hidden_dim, device)
-        self.w2 = _linear(cfg, cfg.hidden_dim, cfg.dim, device)
+        self.w1 = _linear(cfg, cfg.dim, cfg.hidden_dim, device, param_dtype)
+        self.w3 = _linear(cfg, cfg.dim, cfg.hidden_dim, device, param_dtype)
+        self.w2 = _linear(cfg, cfg.hidden_dim, cfg.dim, device, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -250,12 +279,13 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, cfg: LlamaConfig, kernel: Optional[Callable] = None,
-                 page_size: int = 0, device=None):
+                 page_size: int = 0, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.attn = Attention(cfg, kernel, page_size, device)
+        self.attn = Attention(cfg, kernel, page_size, device, param_dtype)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.mlp = Mlp(cfg, device)
+        self.mlp = Mlp(cfg, device, param_dtype)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache: Optional[Dict[str, Any]] = None) -> torch.Tensor:
@@ -267,11 +297,15 @@ class LlamaModel(nn.Module):
     """The decoder.  ``seed`` initializes the weights with flax's scales
     from a ``torch.Generator`` on the model's device; ``seed=None``
     leaves them uninitialized for a caller that loads a state_dict
-    (e.g. from ``models.convert.params_from_flax``)."""
+    (e.g. from ``models.convert.params_from_flax``).  ``param_dtype``
+    holds the linear and embedding weights in that dtype (fp32 master
+    weights for training) while computing in ``cfg.dtype``; None holds
+    them in ``cfg.dtype``."""
 
     def __init__(self, cfg: LlamaConfig, kernel: Optional[Callable] = None,
                  page_size: int = 0, device: DeviceLike = None,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -279,12 +313,14 @@ class LlamaModel(nn.Module):
         # build on the meta device and allocate once: the default
         # nn.Linear init would otherwise run over every weight first
         meta = torch.device("meta")
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, dtype=cfg.dtype,
-                                  device=meta)
+        self.embed = nn.Embedding(cfg.vocab_size, cfg.dim,
+                                  dtype=param_dtype or cfg.dtype, device=meta)
         self.layers = nn.ModuleList(
-            Block(cfg, kernel, page_size, meta) for _ in range(cfg.n_layers))
+            Block(cfg, kernel, page_size, meta, param_dtype)
+            for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, meta)
-        self.lm_head = _linear(cfg, cfg.dim, cfg.vocab_size, meta)
+        self.lm_head = _linear(cfg, cfg.dim, cfg.vocab_size, meta,
+                               param_dtype)
         self.to_empty(device=dev)
         if seed is not None:
             self.init_weights(torch.Generator(dev).manual_seed(int(seed)))
@@ -323,7 +359,9 @@ class LlamaModel(nn.Module):
         either ``block_tables``/``context_lens`` or ``ctx``/``ctx_pos``/
         ``ctx_mask``): -> (logits, pools), the pools updated in place."""
         cfg = self.cfg
-        x = self.embed(tokens)
+        # rows looked up in the stored dtype, then cast: the same values
+        # as flax's cast of the whole table, without a copy of the table
+        x = self.embed(tokens).to(cfg.dtype)
         if cache is not None:
             positions = cache["q_pos"]
             paged = cache.get("block_tables") is not None

@@ -193,3 +193,27 @@ def test_engine_paged_and_dense_agree_on_gpu(cuda):
     dense = LLMEngine(cfg, params=paged._model.state_dict(),
                       attention_impl="dense", **kw)
     assert dense.generate_batch([dict(r) for r in reqs]) == out
+
+
+def test_train_step_on_gpu_loss_falls(cuda):
+    """A tiny bf16 train step with fp32 master weights on the card: the
+    loss of one batch falls, and with remat each step launches the flash
+    kernel twice per layer (the forward, then its recompute)."""
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.train.gspmd import build_llama_train_state
+
+    cfg = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, hidden_dim=512, max_seq_len=512,
+                      remat=True)
+    params, opt, step, _ = build_llama_train_state(
+        cfg, make_mesh(MeshSpec(dp=-1)), learning_rate=1e-3)
+    assert params.lm_head.weight.dtype == torch.float32
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 512)).astype(np.int32)
+    before = fa.LAUNCHES
+    losses = []
+    for _ in range(5):
+        params, opt, loss = step(params, opt, tokens)
+        losses.append(float(loss))
+    assert fa.LAUNCHES - before == 5 * 2 * cfg.n_layers
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses

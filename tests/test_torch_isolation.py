@@ -80,16 +80,23 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from ray_tpu_torch.entry import entry
     from ray_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                             make_kv_pools)
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.parallel.mesh import Mesh
     from ray_tpu_torch.serve.llm import LLMEngine
+    from ray_tpu_torch.train.gspmd import build_llama_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = LlamaConfig.tiny()
+    cuda_mesh = Mesh((torch.device("cuda"),), MeshSpec())
     for call in (lambda: resolve_device(), lambda: resolve_device("cuda"),
                  lambda: entry(), lambda: LlamaModel(cfg),
-                 lambda: make_kv_pools(cfg, 16), lambda: LLMEngine(cfg)):
+                 lambda: make_kv_pools(cfg, 16), lambda: LLMEngine(cfg),
+                 lambda: make_mesh(), lambda: make_mesh(MeshSpec(dp=-1)),
+                 lambda: build_llama_train_state(cfg, cuda_mesh)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+    assert make_mesh(devices=["cpu"]).device == torch.device("cpu")
 
 
 def test_entry_on_cpu_builds_the_small_forward(monkeypatch):
