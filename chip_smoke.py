@@ -18,12 +18,23 @@ compute over fp32 master weights, on a one-device mesh, batch 8 x 1024
 tokens (the flash kernel forward, the dense-recompute backward, AdamW),
 and reports step time, tokens/s and MFU; holds one train step through
 flash against one through dense attention at 2 layers of that width;
-and saves, restores and resumes a train state on the card.  Each phase
+saves, restores and resumes a train state on the card; runs ring
+attention's per-block forward and backward at the train shape against
+dense attention; and trains the same model again through the
+multi-process path (``init_distributed`` over nccl, one spawned rank per
+card, a DeviceMesh with ``MeshSpec(fsdp=-1)``, FSDP2), whose first loss
+must equal the single-card phase's.  Each phase
 prints one JSON line; a failed check raises, so the script exits
 non-zero.  The last lines are the card's name and power limit (from
 nvidia-smi), then {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
+
+    python3 chip_smoke.py --dist-only fsdp=2,sp=2 dp=2,tp=2
+
+builds the kernels, runs the single-card ``train`` phase as the
+reference and then ``dist_train`` on each mesh given, one rank per
+visible card (for a machine with several cards).
 """
 
 from __future__ import annotations
@@ -616,7 +627,7 @@ def train_step_profile(step_fn, params, opt, tokens) -> dict:
             "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
 
 
-def phase_train() -> int:
+def phase_train() -> tuple:
     """The single-card training path at the repo's training width, as
     bench.py's train bench drives the JAX package: bench_1b with remat,
     bf16 compute over fp32 master weights, a one-device mesh, one fixed
@@ -674,7 +685,8 @@ def phase_train() -> int:
          step_profile=profile)
     del params, opt, step_fn, tokens
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(loss_first=losses[0], losses=losses,
+                          step_s_median=median_s)
 
 
 # train_identity: the flash step's loss against the dense step's, and
@@ -799,7 +811,261 @@ def phase_train_checkpoint() -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+# dist_train: the train phase's configuration through the process-group
+# path, one rank per visible card over nccl.  With one card the mesh is
+# fsdp = 1: no exchange between ranks, but FSDP2's sharded parameters,
+# its all-gather and reduce-scatter hooks, the DeviceMesh and the global
+# loss all run.  Over dp and fsdp alone its first loss is the train
+# phase's first loss: the same weights, tokens and products, the loss
+# summed in another order.  tp adds bf16 partial sums of wo and w2 across
+# ranks, and sp computes attention in ring blocks instead of flash: each
+# moves the activations by about a bf16 rounding, as flash against dense
+# attention does (train_identity), so those layouts take that phase's
+# loss bound.
+DIST_FIRST_LOSS_REL = 1e-5
+DIST_SHARDED_MATH_LOSS_REL = 2e-3
+DIST_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _collective_busbw(world: int, nbytes: int = 256 << 20) -> dict:
+    """GB/s of an all-gather and an all-reduce of ``nbytes`` (fp32) over
+    every rank, as nccl-tests counts bus bandwidth: bytes x (n - 1) / n
+    (twice that for an all-reduce) over the median of 5 timed calls."""
+    import torch.distributed as dist
+
+    x = torch.ones(nbytes // 4, device="cuda")
+    gathered = torch.empty(world * x.numel(), device="cuda")
+    out = {}
+    for name, fn, factor in (
+            ("all_gather", lambda: dist.all_gather_into_tensor(gathered, x),
+             world - 1),
+            ("all_reduce", lambda: dist.all_reduce(x), 2 * (world - 1))):
+        times = []
+        for i in range(7):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            dist.barrier()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end) / 1e3)
+        # all_gather moves world x nbytes in all, all_reduce nbytes
+        moved = nbytes * (world if name == "all_gather" else 1)
+        out[name] = moved * factor / world / statistics.median(times) / 1e9
+    del x, gathered
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_train_rank(rank: int, world: int, port: int, out: str,
+                     spec: dict) -> None:
+    """One rank of ``dist_train`` (a spawned process on card ``rank``)
+    on ``MeshSpec(**spec)``; rank 0 writes the results to ``out``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import (MeshSpec, init_distributed,
+                                        make_mesh, shutdown_distributed)
+    from ray_tpu_torch.train.gspmd import build_llama_train_state, param_count
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed(f"localhost:{port}", world, rank)
+    try:
+        cfg = dataclasses.replace(LlamaConfig.bench_1b(), remat=True)
+        warmup, steps = 3, 12
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = make_mesh(MeshSpec(**spec))
+        params, opt, step_fn, _ = build_llama_train_state(
+            cfg, mesh, rng_seed=SEED, batch_size=TRAIN_SHAPE[0],
+            seq_len=TRAIN_SHAPE[1])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # the global batch, on the card once; each step takes its slice
+        tokens = torch.from_numpy(_train_tokens(cfg, SEED)).cuda()
+        losses, step_s = [], []
+        fa.LAUNCHES = 0
+        for i in range(warmup + steps):
+            t0 = time.perf_counter()
+            params, opt, loss = step_fn(params, opt, tokens)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            losses.append(float(loss))
+            if i >= warmup:
+                step_s.append(dt)
+        launches = fa.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        profile = train_step_profile(step_fn, params, opt, tokens)
+        busbw = _collective_busbw(world) if world > 1 else None
+        result = dict(world_size=world, backend=dist.get_backend(),
+                      collective_busbw_gb_s=busbw,
+                      mesh=mesh.shape,
+                      device_mesh=str(mesh.device_mesh),
+                      params=param_count(params), init_s=init_s,
+                      warmup_steps=warmup, timed_steps=steps,
+                      losses=losses, step_s=step_s, flash_launches=launches,
+                      flash_launches_per_step=launches / (warmup + steps),
+                      n_layers=cfg.n_layers, max_memory_allocated=peak,
+                      step_profile=profile)
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(result, f)
+    finally:
+        shutdown_distributed()
+
+
+def phase_dist_train(train: dict, spec: dict = None) -> int:
+    """The train phase's model, batch and steps through
+    ``init_distributed``, ``make_mesh(MeshSpec(**spec))`` (default
+    ``fsdp=-1``) and the sharded ``build_llama_train_state``, one
+    spawned rank per card.  A rank that raises or dies fails the
+    phase."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    spec = spec or {"fsdp": -1}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "dist_train.json")
+        ctx = mp.start_processes(_dist_train_rank,
+                                 args=(world, _free_port(), out, spec),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise TimeoutError(f"dist_train ranks still running after "
+                                   f"{DIST_TIMEOUT_S} s")
+        with open(out) as f:
+            r = json.load(f)
+    losses = r["losses"]
+    per_step = r["flash_launches_per_step"]
+    mesh = r["mesh"]
+    bound = (DIST_FIRST_LOSS_REL if mesh["tp"] == mesh["sp"] == 1
+             else DIST_SHARDED_MATH_LOSS_REL)
+    first_rel = abs(losses[0] - train["loss_first"]) / abs(train["loss_first"])
+    check(all(math.isfinite(x) for x in losses), f"dist losses {losses}")
+    check(losses[-1] < losses[0], f"dist loss did not fall: {losses}")
+    check(first_rel <= bound,
+          f"dist first loss {losses[0]} vs train {train['loss_first']}")
+    check(r["world_size"] == world == math.prod(mesh.values()),
+          f"dist mesh {mesh} over {r['world_size']} ranks")
+    # flash runs where attention is not a ring: twice a layer a step
+    want = 2 * r["n_layers"] if mesh["sp"] == 1 else 0
+    check(per_step == want,
+          f"dist flash launches per step {per_step} != {want}")
+    median_s = statistics.median(r["step_s"])
+    tokens_per_s = TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / median_s
+    # the peak of every card the ranks run on
+    mfu = 6 * r["params"] * tokens_per_s \
+        / (world * PEAK_FLOPS_PER_S[torch.bfloat16])
+    profile = r.pop("step_profile")
+    emit("dist_train", config="bench_1b", remat=True,
+         compute_dtype="bfloat16", param_dtype="float32",
+         tokens=list(TRAIN_SHAPE), **r,
+         step_s_median=median_s, tokens_per_s=tokens_per_s, mfu=mfu,
+         mfu_definition=MFU_DEFINITION + ", the peak times world_size",
+         loss_first=losses[0],
+         loss_last=losses[-1], train_loss_first=train["loss_first"],
+         first_loss_rel=first_rel, first_loss_rel_bound=bound,
+         loss_rel_by_step=[abs(a - b) / abs(b) for a, b
+                           in zip(losses, train["losses"])],
+         train_step_s_median=train["step_s_median"],
+         overhead_vs_train=median_s / train["step_s_median"] - 1,
+         device_ms_over_median_step=(
+             profile["device_ms"] / (median_s * 1e3)
+             if profile["device_ms"] else None),
+         step_profile=profile)
+    return r["flash_launches"]
+
+
+# ring_blocks: relative L2 error of each tensor against dense attention
+# and its autograd in fp32 from the same bf16 inputs.  The blocks compute
+# their scores in fp32, round P to bf16 for P.V as dense attention does,
+# and their gradients in fp32; each tensor is rounded once to bf16 at
+# the end (2^-9 relative).  1e-2 allows about ten such roundings; a
+# wrong mask, a lost block or a wrong LSE moves a tensor by order one.
+# Dense attention in bf16 is reported beside it, as a yardstick.
+RING_REL = 1e-2
+
+
+def phase_ring_blocks(gen) -> None:
+    """Ring attention's per-block forward and backward (the functions
+    each sp rank runs per ring step) at the train shape [8, 1024, 12/4,
+    128] in bf16, the sequence cut into 4 blocks fed in ring order."""
+    from ray_tpu_torch.models.llama import dense_attention
+    from ray_tpu_torch.ops.ring_attention import ring_blocks
+
+    b, s, h, hkv, d, n = 8, 1024, 12, 4, 128, 4
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda")
+    k = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    v = torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+    d_out = torch.randn((b, s, h, d), generator=gen, device="cuda")
+    q, k, v, d_out = (x.to(torch.bfloat16) for x in (q, k, v, d_out))
+    ring = ring_blocks(q, k, v, n, causal=True, d_out=d_out)
+
+    def dense(dtype):
+        xs = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        out = dense_attention(*xs, causal=True)
+        out.backward(d_out.to(dtype))
+        return [out.detach()] + [x.grad for x in xs]
+
+    ref, bf16 = dense(torch.float32), dense(torch.bfloat16)
+    torch.cuda.synchronize()
+
+    def rel(a, r):
+        return float((a.float() - r).norm() / r.norm())
+
+    names = ("out", "dq", "dk", "dv")
+    ring_rel = {nm: rel(a, r) for nm, a, r in zip(names, ring, ref)}
+    dense_rel = {nm: rel(a, r) for nm, a, r in zip(names, bf16, ref)}
+    max_abs = {nm: max_err(a, r) for nm, a, r in zip(names, ring, ref)}
+    for nm in names:
+        check(bool(torch.isfinite(ring[names.index(nm)]).all()),
+              f"ring_blocks {nm} not finite")
+        check(ring_rel[nm] <= RING_REL,
+              f"ring_blocks {nm}: rel err {ring_rel[nm]} > {RING_REL}")
+    fwd_ms = time_ms(lambda: ring_blocks(q, k, v, n, causal=True), 5)
+    both_ms = time_ms(lambda: ring_blocks(q, k, v, n, causal=True,
+                                          d_out=d_out), 5)
+    emit("ring_blocks", shape=dict(B=b, S=s, H=h, Hkv=hkv, D=d, blocks=n,
+                                   causal=True), dtype="bfloat16",
+         reference="dense_attention + autograd in fp32 on the same inputs",
+         rel_err=ring_rel, rel_err_bound=RING_REL,
+         dense_bf16_rel_err=dense_rel, max_abs_err=max_abs,
+         forward_ms=fwd_ms, forward_backward_ms=both_ms)
+    del q, k, v, d_out, ring, ref, bf16
+    torch.cuda.empty_cache()
+
+
+def _mesh_spec(arg: str) -> dict:
+    """"fsdp=2,sp=2" -> {"fsdp": 2, "sp": 2}."""
+    return {k: int(v) for k, v in (kv.split("=") for kv in arg.split(","))}
+
+
+def _finish(smi: str) -> None:
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -807,14 +1073,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(SEED)
     smi = phase_device()
+    if argv[:1] == ["--dist-only"]:
+        # layouts over several cards: the train phase as the reference,
+        # then dist_train on each mesh given ("fsdp=2,sp=2" ...)
+        train = phase_train()[1]
+        for arg in argv[1:] or ["fsdp=-1"]:
+            phase_dist_train(train, _mesh_spec(arg))
+        _finish(smi)
+        return 0
     paged = phase_kernel_paged(gen)
     flash = phase_kernel_flash(gen)
     flash_launches = phase_forward(gen)
     paged_launches = phase_serve()
     phase_serve_identity()
-    flash_launches += phase_train()
+    train_launches, train = phase_train()
+    flash_launches += train_launches
     phase_train_identity()
     phase_train_checkpoint()
+    phase_ring_blocks(gen)
+    flash_launches += phase_dist_train(train)
     kernels = []
     for name, row, launches, source, replaces in (
             ("flash_attention", flash, flash_launches,
@@ -833,12 +1110,9 @@ def main() -> int:
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    _finish(smi)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,8 +1,9 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's accelerator path.
 
 The flagship Llama model, its two attention kernels (flash prefill and
-paged decode, hand-written CUDA for Hopper under ``csrc/``) and the
-continuous-batching LLM engine.  The package imports ``torch`` and
+paged decode, hand-written CUDA for Hopper under ``csrc/``), the
+continuous-batching LLM engine, and training on one card or over a
+torch.distributed mesh (dp/fsdp/tp/sp, ring attention).  The package imports ``torch`` and
 numpy and nothing of ``ray_tpu``; where it needs a pure-Python helper
 from there it keeps its own copy.
 

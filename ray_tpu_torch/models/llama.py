@@ -23,6 +23,12 @@ fp32 as optax does.  The RMSNorm scales are fp32 either way, as flax
 multiplies by them in fp32.
 Pools are updated in place (``index_copy_``) where the JAX engine
 donated them to jit.
+
+Over a process group (``train.gspmd``), ``llama_param_rules`` is the
+tensor-parallel plan; attention takes its head counts from its local
+projections, the no-cache forward its positions from ``start_pos``,
+and the loss of a sequence shard is ``lm_loss_sum`` over
+``shifted_targets``.
 """
 
 from __future__ import annotations
@@ -231,11 +237,12 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = _rope(self.wq(x).view(b, s, cfg.n_heads, hd), positions,
-                  cfg.rope_theta)
-        k = _rope(self.wk(x).view(b, s, cfg.n_kv_heads, hd), positions,
-                  cfg.rope_theta)
-        v = self.wv(x).view(b, s, cfg.n_kv_heads, hd)
+        # head counts from the projections: under tensor parallelism a
+        # process holds n_heads / tp and n_kv_heads / tp of them
+        q = _rope(self.wq(x).view(b, s, -1, hd), positions, cfg.rope_theta)
+        k = _rope(self.wk(x).view(b, s, -1, hd), positions, cfg.rope_theta)
+        v = self.wv(x).view(b, s, -1, hd)
+        hkv = k.shape[2]
         if cache is not None:
             # incremental path: write post-rope k/v into this layer's
             # flat slot pools in place, attend over the context.  Slot 0
@@ -246,8 +253,8 @@ class Attention(nn.Module):
             # of every context.
             flat = cache["slots"].reshape(-1)
             pool_k, pool_v = cache["k"], cache["v"]
-            pool_k.index_copy_(0, flat, k.reshape(b * s, cfg.n_kv_heads, hd))
-            pool_v.index_copy_(0, flat, v.reshape(b * s, cfg.n_kv_heads, hd))
+            pool_k.index_copy_(0, flat, k.reshape(b * s, hkv, hd))
+            pool_v.index_copy_(0, flat, v.reshape(b * s, hkv, hd))
             if cache.get("block_tables") is not None and s == 1 \
                     and self.page_size > 0:
                 from ray_tpu_torch.ops import paged_attention as pa
@@ -262,7 +269,7 @@ class Attention(nn.Module):
                                        positions)
         else:
             out = (self.kernel or default_attention)(q, k, v)
-        return self.wo(out.reshape(b, s, cfg.n_heads * hd))
+        return self.wo(out.reshape(b, s, -1))
 
 
 class Mlp(nn.Module):
@@ -353,8 +360,10 @@ class LlamaModel(nn.Module):
                 mod.scale.fill_(1.0)
 
     def forward(self, tokens: torch.Tensor,
-                cache: Optional[Dict[str, Any]] = None):
-        """No cache: tokens [B, S] -> logits [B, S, V].  With a cache
+                cache: Optional[Dict[str, Any]] = None, start_pos: int = 0):
+        """No cache: tokens [B, S] -> logits [B, S, V], the tokens at
+        positions ``start_pos`` on (a sequence shard of sp rank i starts
+        at i·S; rope needs the global positions).  With a cache
         (``k``/``v`` lists of per-layer pools, ``slots``, ``q_pos`` and
         either ``block_tables``/``context_lens`` or ``ctx``/``ctx_pos``/
         ``ctx_mask``): -> (logits, pools), the pools updated in place."""
@@ -378,7 +387,8 @@ class LlamaModel(nn.Module):
                 x = layer(x, positions, layer_cache)
             logits = self.lm_head(self.final_norm(x))
             return logits, {"k": cache["k"], "v": cache["v"]}
-        positions = torch.arange(tokens.shape[1], device=tokens.device,
+        positions = torch.arange(start_pos, start_pos + tokens.shape[1],
+                                 device=tokens.device,
                                  dtype=torch.int32).expand(tokens.shape)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
@@ -459,6 +469,72 @@ def kv_pool_bytes(cfg: LlamaConfig, num_slots: int) -> int:
     """Resident bytes of one replica's KV pools (both k and v)."""
     return (2 * cfg.n_layers * num_slots * cfg.n_kv_heads
             * cfg.head_dim * cfg.dtype.itemsize)
+
+
+def llama_param_rules() -> Dict[str, Any]:
+    """The tensor-parallel plan (``parallelize_module``) by module path,
+    the counterpart of the JAX package's PartitionSpec rules.  Flax
+    kernels are [in, out]; ``nn.Linear.weight`` is [out, in], so "tp on
+    the out dim" is dim 0 here.  Each entry and the JAX spec it stands
+    for (the tp part; fsdp is FSDP2's, below):
+
+      embed          RowwiseParallel: the table [V, dim] split over the
+                     vocabulary, each id looked up where it lives and
+                     the rows summed   <- ``P("tp", "fsdp")``
+      attn.wq/wk/wv  ColwiseParallel: weight dim 0 (heads) over tp, so a
+                     process holds n_heads/tp and n_kv_heads/tp heads
+                                       <- ``P("fsdp", "tp", None)``
+      attn.wo        RowwiseParallel: weight dim 1 (heads) over tp, the
+                     partial outputs all-reduced   <- ``P("tp", None,
+                     "fsdp")``
+      mlp.w1/w3      ColwiseParallel: the hidden dim over tp
+                                       <- ``P("fsdp", "tp")``
+      mlp.w2         RowwiseParallel   <- ``P("tp", "fsdp")``
+      lm_head        ColwiseParallel over the vocabulary, the logits
+                     gathered whole for the loss   <- ``P("fsdp", "tp")``
+      norms          not listed: replicated   <- ``P(None)``
+
+    FSDP2 then shards dim 0 of each (local) weight over fsdp where JAX
+    shards the other big dim: the values are the same, only their
+    memory layout differs, so the two compare by value."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import (ColwiseParallel,
+                                                   RowwiseParallel)
+
+    return {
+        "embed": RowwiseParallel(input_layouts=Replicate()),
+        "layers.*.attn.wq": ColwiseParallel(),
+        "layers.*.attn.wk": ColwiseParallel(),
+        "layers.*.attn.wv": ColwiseParallel(),
+        "layers.*.attn.wo": RowwiseParallel(),
+        "layers.*.mlp.w1": ColwiseParallel(),
+        "layers.*.mlp.w3": ColwiseParallel(),
+        "layers.*.mlp.w2": RowwiseParallel(),
+        "lm_head": ColwiseParallel(output_layouts=Replicate()),
+    }
+
+
+def lm_loss_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Summed next-token cross entropy of ``logits`` [B, S, V] against
+    ``targets`` [B, S], upcast to fp32 only here; a target of -1 (past
+    the end of the sequence) counts nothing."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets.clamp_min(0).long()[..., None])
+    return torch.where(targets >= 0, lse - picked[..., 0], 0.0).sum()
+
+
+def shifted_targets(tokens: Any) -> Any:
+    """Each position's next token, -1 after the last: [B, S] like
+    ``tokens``, so a sequence shard's targets are the same slice of it
+    (the last position of shard i looks up the first token of shard
+    i + 1)."""
+    if isinstance(tokens, torch.Tensor):
+        return torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], -1)],
+                         dim=1)
+    tokens = np.asarray(tokens)
+    return np.concatenate(
+        [tokens[:, 1:], np.full_like(tokens[:, :1], -1)], axis=1)
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

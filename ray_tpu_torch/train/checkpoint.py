@@ -6,10 +6,12 @@ A state is a tree (dicts, lists, tuples) of tensors and plain values: a
 model's and an optimizer's ``state_dict``, a step count.  Its tensors go
 through ``torch.distributed.checkpoint`` (DCP) under their tree paths,
 so the same call saves sharded state from several processes without a
-gather once a process group exists, as orbax does for the JAX package;
-without a process group it runs in this process alone.  The tree's shape
-and its plain values go beside them in ``tree.json``, which keeps what
-DCP's own flattening would lose (the int keys of an optimizer's state).
+gather once a process group exists, as orbax does for the JAX package:
+each process writes its own shards, and restoring into DTensors reads
+each process's shards back; without a process group it runs in this
+process alone.  The tree's shape and its plain values go beside them in
+``tree.json``, which keeps what DCP's own flattening would lose (the int
+keys of an optimizer's state).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 if TYPE_CHECKING:
     from ray_tpu_torch.train.storage import StorageContext
@@ -81,30 +85,57 @@ def _one_process_is_meant():
         yield
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save_checkpoint(path: str, state: Any) -> str:
-    """Write a tree of tensors and plain values to ``path``."""
+    """Write a tree of tensors and plain values to ``path``.  Under a
+    process group every process calls it with its own shards (DTensors,
+    e.g. from ``torch.distributed.checkpoint.state_dict.get_state_dict``
+    of an FSDP2 model and its optimizer) and the same plain values; each
+    writes only its shards, and rank 0 alone clears the directory and
+    writes the tree."""
     import torch.distributed.checkpoint as dcp
 
     path = os.path.abspath(path)
-    if os.path.exists(path):
+    if _rank() == 0 and os.path.exists(path):
         shutil.rmtree(path)
+    _barrier()
     tensors: Dict[str, torch.Tensor] = {}
     tree = _encode(state, (), tensors)
     with _one_process_is_meant():
         dcp.save(tensors, checkpoint_id=path)
     # the tree last: a directory that has it holds a whole checkpoint
-    tmp = os.path.join(path, TREE_FILE + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump(tree, f)
-    os.replace(tmp, os.path.join(path, TREE_FILE))
+    if _rank() == 0:
+        tmp = os.path.join(path, TREE_FILE + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(tree, f)
+        os.replace(tmp, os.path.join(path, TREE_FILE))
+    _barrier()
     return path
+
+
+def _empty_like(md, like: Optional[torch.Tensor]) -> torch.Tensor:
+    if like is None:
+        return torch.empty(md.size, dtype=md.properties.dtype, device="cpu")
+    if isinstance(like, DTensor):
+        # the target's mesh and placements: each process reads its shard
+        return torch.empty_like(like)
+    return torch.empty(md.size, dtype=like.dtype, device=like.device)
 
 
 def restore_checkpoint(path: str, target: Any = None) -> Any:
     """Read a tree back, its tensors on the CPU in their saved dtypes;
     with ``target``, each tensor takes the dtype and device of the
-    target's tensor at the same path.  ``target`` itself is left as it
-    was."""
+    target's tensor at the same path, and a DTensor target its mesh and
+    placements, so each process reads only its own shard.  ``target``
+    itself is left as it was."""
     import torch.distributed.checkpoint as dcp
 
     path = os.path.abspath(path)
@@ -114,12 +145,8 @@ def restore_checkpoint(path: str, target: Any = None) -> Any:
     if target is not None:
         _encode(target, (), like)
     meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
-    tensors = {}
-    for key, md in meta.items():
-        t = like.get(key)
-        tensors[key] = torch.empty(
-            md.size, dtype=md.properties.dtype if t is None else t.dtype,
-            device="cpu" if t is None else t.device)
+    tensors = {key: _empty_like(md, like.get(key))
+               for key, md in meta.items()}
     with _one_process_is_meant():
         dcp.load(tensors, checkpoint_id=path)
     return _decode(tree, tensors)

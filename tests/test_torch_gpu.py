@@ -217,3 +217,35 @@ def test_train_step_on_gpu_loss_falls(cuda):
         losses.append(float(loss))
     assert fa.LAUNCHES - before == 5 * 2 * cfg.n_layers
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+def test_one_rank_nccl_step_matches_the_one_device_step(cuda, tmp_path):
+    """The multi-process path at one rank over nccl (a DeviceMesh, FSDP2's
+    hooks, the global loss) against the one-device step from the same
+    seed: losses within 1e-5 relative (the two sum the loss in other
+    orders)."""
+    from ray_tpu_torch.parallel import (MeshSpec, init_distributed,
+                                        make_mesh, shutdown_distributed)
+    from ray_tpu_torch.train.gspmd import build_llama_train_state
+
+    cfg = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, hidden_dim=512, max_seq_len=512,
+                      remat=True)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 512)).astype(np.int32)
+
+    def losses(mesh):
+        params, opt, step, _ = build_llama_train_state(cfg, mesh,
+                                                       learning_rate=1e-3)
+        return [float(step(params, opt, tokens)[2]) for _ in range(3)]
+
+    one_device = losses(make_mesh(MeshSpec(dp=-1)))
+    init_distributed("file://" + str(tmp_path / "rendezvous"), 1, 0)
+    try:
+        mesh = make_mesh(MeshSpec(fsdp=-1))
+        assert mesh.device_mesh is not None
+        one_rank = losses(mesh)
+    finally:
+        shutdown_distributed()
+    for a, b in zip(one_rank, one_device):
+        assert abs(a - b) <= 1e-5 * abs(b), (one_rank, one_device)
