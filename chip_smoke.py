@@ -23,7 +23,14 @@ attention's per-block forward and backward at the train shape against
 dense attention; and trains the same model again through the
 multi-process path (``init_distributed`` over nccl, one spawned rank per
 card, a DeviceMesh with ``MeshSpec(fsdp=-1)``, FSDP2), whose first loss
-must equal the single-card phase's.  Each phase
+must equal the single-card phase's.  Last, the port's actor runtime:
+``ray_tpu_torch.init()`` on this machine, an actor pinned to the card
+that takes a 256 MiB bf16 CUDA tensor out of the object store bit for
+bit, two GPU tasks on disjoint cards of a cluster that claims two; the
+train phase's configuration through ``TorchTrainer`` in a GPU-pinned
+actor, whose six losses must match the train phase's; and a worker
+killed mid-run whose resumed losses must equal an uninterrupted run's
+bit for bit.  Each phase
 prints one JSON line; a failed check raises, so the script exits
 non-zero.  The last lines are the card's name and power limit (from
 nvidia-smi), then {"ok": true, "device": {...}}.
@@ -1053,6 +1060,331 @@ def phase_ring_blocks(gen) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ the actor runtime
+#
+# The runtime's workers import this file as the module ``chip_smoke``
+# (the repo root is on their PYTHONPATH), so what they run below is
+# pickled by reference and never pulls the driver's state along.
+
+RUNTIME_STORE_BYTES = 1 << 30     # the object store's arena
+RUNTIME_PUT_ELEMS = 128 << 20     # bf16: 256 MiB
+RUNTIME_TIMEOUT_S = 300
+
+
+def _put_tensor(seed: int) -> torch.Tensor:
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.randn(RUNTIME_PUT_ELEMS, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+class GpuProbe:
+    """An actor holding one GPU lease: what it sees, and a CUDA tensor
+    taken out of the object store on its own card."""
+
+    def info(self) -> dict:
+        return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count(),
+                "device_name": torch.cuda.get_device_name()}
+
+    def receive(self, boxed: list, seed: int) -> dict:
+        import ray_tpu_torch as rt
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = rt.get(boxed[0])
+        torch.cuda.synchronize()
+        get_s = time.perf_counter() - t0
+        return {"get_s": get_s, "device": str(got.device),
+                "current_device": torch.cuda.current_device(),
+                "dtype": str(got.dtype), "numel": got.numel(),
+                "bit_identical": bool(torch.equal(
+                    got.view(torch.int16), _put_tensor(seed).view(torch.int16)))}
+
+
+def visible_devices_task(sync_dir: str) -> str:
+    """A task holding one GPU lease: its CUDA_VISIBLE_DEVICES, once both
+    tasks have started (so the two leases are held at once)."""
+    mine = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+    with open(os.path.join(sync_dir, f"{os.getpid()}.gpus"), "w") as f:
+        f.write(mine)
+    deadline = time.time() + 60
+    while time.time() < deadline and len(
+            [n for n in os.listdir(sync_dir) if n.endswith(".gpus")]) < 2:
+        time.sleep(0.05)
+    return mine
+
+
+def phase_runtime(tmp: str) -> None:
+    """``ray_tpu_torch.init()`` on this machine: its GPU count, an actor
+    pinned to one card, a 256 MiB bf16 CUDA tensor through the object
+    store into that actor; then a cluster that claims two GPUs, where
+    two concurrent ``num_gpus=1`` tasks see disjoint cards."""
+    import ray_tpu_torch as rt
+
+    import chip_smoke as this
+
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=RUNTIME_STORE_BYTES)
+    try:
+        init_s = time.perf_counter() - t0
+        gpus = rt.cluster_resources().get("GPU", 0)
+        check(gpus == torch.cuda.device_count(),
+              f"runtime: the cluster counts {gpus} GPU, torch "
+              f"{torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        probe = rt.remote(num_gpus=1)(this.GpuProbe).remote()
+        info = rt.get(probe.info.remote(), timeout=RUNTIME_TIMEOUT_S)
+        actor_s = time.perf_counter() - t0
+        check(info["device_count"] == 1 and info["cuda_visible_devices"]
+              and len(info["cuda_visible_devices"].split(",")) == 1,
+              f"runtime: the actor sees {info}")
+        # twice: what the first round pays for touching fresh pages (the
+        # host buffer, the arena's mappings) shows as its excess
+        sent = _put_tensor(SEED)
+        put_s, got = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = rt.put(sent)
+            put_s.append(time.perf_counter() - t0)
+            got.append(rt.get(probe.receive.remote([ref], SEED),
+                              timeout=RUNTIME_TIMEOUT_S))
+            del ref
+        # the warm put's two halves: the copy off the card, and the put
+        # of that host tensor into the store
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = sent.cpu()
+        d2h_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = rt.put(host)
+        host_put_s = time.perf_counter() - t0
+        del ref, host
+        for g in got:
+            check(g["bit_identical"] and g["numel"] == sent.numel()
+                  and g["device"] == f"cuda:{g['current_device']}",
+                  f"runtime: the tensor came back as {g}")
+        del sent
+        rt.kill(probe)
+    finally:
+        rt.shutdown()
+    sync_dir = os.path.join(tmp, "gpu_tasks")
+    os.makedirs(sync_dir)
+    rt.init(num_cpus=2, resources={"GPU": 2},
+            object_store_memory=64 << 20)
+    try:
+        task = rt.remote(num_gpus=1)(this.visible_devices_task)
+        seen = rt.get([task.remote(sync_dir), task.remote(sync_dir)],
+                      timeout=RUNTIME_TIMEOUT_S)
+    finally:
+        rt.shutdown()
+    sets = [set(s.split(",")) for s in seen]
+    check(all(len(s) == 1 for s in sets) and not sets[0] & sets[1],
+          f"runtime: the two GPU leases see {seen}")
+    nbytes = RUNTIME_PUT_ELEMS * 2
+    get_s = [g["get_s"] for g in got]
+    emit("runtime", cluster_gpus=gpus, init_s=init_s,
+         actor_first_call_s=actor_s, actor=info, put_bytes=nbytes,
+         put_s=put_s, put_gb_s=[nbytes / t / 1e9 for t in put_s],
+         put_split={"device_to_host_s": d2h_s, "host_tensor_put_s": host_put_s},
+         get_in_actor_s=get_s, get_gb_s=[nbytes / t / 1e9 for t in get_s],
+         get_device=got[0]["device"], get_dtype=got[0]["dtype"],
+         bit_identical=True, faked_gpus=2, tasks_visible_devices=seen)
+
+
+def trainer_loop(config: dict) -> dict:
+    """The train loop TorchTrainer runs inside its GPU-pinned actor: a
+    one-rank process group over nccl, ``MeshSpec(fsdp=-1)``, the train
+    phase's model and batch; reports each step's loss and time.  It
+    reports a checkpoint after each step before ``save_until`` and
+    resumes from the one it is given; ``die_at`` ends the first life of
+    the process at that step."""
+    import dataclasses
+
+    from torch.distributed.checkpoint.state_dict import (get_state_dict,
+                                                         set_state_dict)
+
+    from ray_tpu_torch import train as rtt
+    from ray_tpu_torch.parallel import (MeshSpec, init_distributed,
+                                        make_mesh, shutdown_distributed)
+    from ray_tpu_torch.train.gspmd import build_llama_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    init_distributed(f"localhost:{_free_port()}", 1, 0)
+    try:
+        cfg = dataclasses.replace(LlamaConfig.bench_1b(), remat=True,
+                                  n_layers=config["n_layers"])
+        mesh = make_mesh(MeshSpec(fsdp=-1))
+        params, opt, step_fn, _ = build_llama_train_state(
+            cfg, mesh, rng_seed=config["seed"], batch_size=TRAIN_SHAPE[0],
+            seq_len=TRAIN_SHAPE[1])
+        tokens = torch.from_numpy(_train_tokens(cfg, config["seed"])).cuda()
+        start = 0
+        resumed_from = rtt.get_checkpoint()
+        if resumed_from:
+            from ray_tpu_torch.train import restore_checkpoint
+
+            model_sd, opt_sd = get_state_dict(params, opt)
+            state = restore_checkpoint(resumed_from, target={
+                "model": model_sd, "opt": opt_sd, "step": 0})
+            set_state_dict(params, opt, model_state_dict=state["model"],
+                           optim_state_dict=state["opt"])
+            start = state["step"] + 1
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        fa.LAUNCHES = 0
+        for step in range(start, config["steps"]):
+            if step == config.get("die_at") \
+                    and not os.path.exists(config["marker"]):
+                open(config["marker"], "w").close()
+                os._exit(1)  # a hard worker death, not a Python error
+            t0 = time.perf_counter()
+            params, opt, loss = step_fn(params, opt, tokens)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            ckpt, save_s = None, 0.0
+            if step < config.get("save_until", 0):
+                from ray_tpu_torch.train import save_checkpoint
+
+                t0 = time.perf_counter()
+                model_sd, opt_sd = get_state_dict(params, opt)
+                ckpt = save_checkpoint(
+                    os.path.join(rtt.get_context().trial_dir,
+                                 f"ckpt_{step}"),
+                    {"model": model_sd, "opt": opt_sd, "step": step})
+                save_s = time.perf_counter() - t0
+            rtt.report({"step": step, "loss": float(loss), "step_s": step_s,
+                        "save_s": save_s, "at": time.time()},
+                       checkpoint=ckpt)
+        return {"flash_launches": fa.LAUNCHES,
+                "steps_run": config["steps"] - start,
+                "resumed_from": resumed_from, "setup_s": setup_s,
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_name": torch.cuda.get_device_name(),
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    finally:
+        shutdown_distributed()
+
+
+TRAINER_STEPS = 6
+TRAINER_LOSS_REL = 1e-5
+
+
+def phase_trainer(train: dict, tmp: str) -> int:
+    """The train phase's configuration (bench_1b, remat, bf16 over fp32
+    master weights, 8 x 1024 tokens from seed 0) through
+    ``TorchTrainer(loop, ScalingConfig(num_workers=1))``: one worker
+    actor holding the card.  Same weights, batch and kernels as the
+    train phase, so the same losses."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    import chip_smoke as this
+
+    n_layers = LlamaConfig.bench_1b().n_layers
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        this.trainer_loop, scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="trainer", storage_path=tmp),
+        train_loop_config={"n_layers": n_layers, "seed": SEED,
+                           "steps": TRAINER_STEPS}).fit()
+    fit_s = time.perf_counter() - t0
+    final = result.per_worker_final[0]
+    losses = [m["loss"] for m in result.metrics_history]
+    step_s = [m["step_s"] for m in result.metrics_history]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, train["losses"])]
+    check(len(losses) == TRAINER_STEPS, f"trainer: {len(losses)} reports")
+    check(max(rel) <= TRAINER_LOSS_REL,
+          f"trainer: losses {losses} vs train {train['losses'][:6]}")
+    check(final["flash_launches"] == 2 * n_layers * TRAINER_STEPS,
+          f"trainer: flash launched {final['flash_launches']} times")
+    check(final["cuda_visible_devices"] and
+          len(final["cuda_visible_devices"].split(",")) == 1,
+          f"trainer: the worker sees {final['cuda_visible_devices']}")
+    emit("trainer", config="bench_1b", remat=True, compute_dtype="bfloat16",
+         param_dtype="float32", tokens=list(TRAIN_SHAPE), workers=1,
+         losses=losses, train_losses=train["losses"][:TRAINER_STEPS],
+         loss_rel=rel, loss_rel_bound=TRAINER_LOSS_REL, step_s=step_s,
+         # the first step warms cuBLAS and the allocator in a fresh
+         # process, as the train phase's warm-up steps do
+         first_step_s=step_s[0], step_s_median=statistics.median(step_s[1:]),
+         train_step_s_median=train["step_s_median"],
+         fit_s=fit_s, **final,
+         flash_launches_per_step=final["flash_launches"] / TRAINER_STEPS)
+    return final["flash_launches"]
+
+
+def phase_trainer_resume(tmp: str) -> int:
+    """bench_1b width cut to 2 layers through TorchTrainer with one
+    retry: the loop reports a checkpoint after steps 0-2 and its worker
+    dies at step 3; the new gang restores the last checkpoint the
+    trainer received (step 2's, or step 1's when the worker died before
+    the trainer polled step 2's report) and runs on to step 5.  Every
+    reported loss must equal an uninterrupted run's bit for bit."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    import chip_smoke as this
+
+    loop_config = {"n_layers": 2, "seed": SEED + 5, "steps": 6}
+
+    def fit(name: str, **extra):
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            this.trainer_loop, scaling_config=ScalingConfig(num_workers=1),
+            run_config=RunConfig(name=name, storage_path=tmp,
+                                 failure_max_retries=1),
+            train_loop_config={**loop_config, **extra}).fit()
+        return result, time.perf_counter() - t0
+
+    marker = os.path.join(tmp, "died_once")
+    resumed, resumed_s = fit("resume", save_until=3, die_at=3,
+                             marker=marker)
+    straight, straight_s = fit("straight")
+    check(os.path.exists(marker), "trainer_resume: the worker never died")
+    steps = [m["step"] for m in resumed.metrics_history]
+    check(steps == list(range(6)), f"trainer_resume: steps {steps}")
+    got = [m["loss"] for m in resumed.metrics_history]
+    want = [m["loss"] for m in straight.metrics_history]
+    final = resumed.per_worker_final[0]
+    check(final["resumed_from"] and 3 <= final["steps_run"] <= 4,
+          f"trainer_resume: the second life ran {final}")
+    check(got == want, f"trainer_resume: losses {got} vs {want}")
+    emit("trainer_resume", config="bench_1b width, 2 layers, bf16",
+         died_at_step=3, resumed_from=os.path.basename(final["resumed_from"]),
+         second_life_steps=final["steps_run"],
+         second_life_setup_s=final["setup_s"],
+         save_s=[m["save_s"] for m in resumed.metrics_history],
+         report_at_s=[m["at"] - resumed.metrics_history[0]["at"]
+                      for m in resumed.metrics_history],
+         losses_resumed=got, losses_straight=want, bitwise=True,
+         fit_with_death_s=resumed_s, fit_straight_s=straight_s,
+         flash_launches=final["flash_launches"]
+         + straight.per_worker_final[0]["flash_launches"])
+    return (final["flash_launches"]
+            + straight.per_worker_final[0]["flash_launches"])
+
+
+def phase_runtime_and_trainers(train: dict) -> int:
+    """The runtime, trainer and trainer_resume phases, with the
+    runtime's session directories in a temporary directory; returns the
+    flash launches the trainers' workers made."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["RT_TMPDIR"] = tmp
+        phase_runtime(tmp)
+        rt.init(object_store_memory=RUNTIME_STORE_BYTES)
+        try:
+            launches = phase_trainer(train, tmp)
+            launches += phase_trainer_resume(tmp)
+        finally:
+            rt.shutdown()
+    return launches
+
+
 def _mesh_spec(arg: str) -> dict:
     """"fsdp=2,sp=2" -> {"fsdp": 2, "sp": 2}."""
     return {k: int(v) for k, v in (kv.split("=") for kv in arg.split(","))}
@@ -1092,6 +1424,7 @@ def main(argv) -> int:
     phase_train_checkpoint()
     phase_ring_blocks(gen)
     flash_launches += phase_dist_train(train)
+    flash_launches += phase_runtime_and_trainers(train)
     kernels = []
     for name, row, launches, source, replaces in (
             ("flash_attention", flash, flash_launches,

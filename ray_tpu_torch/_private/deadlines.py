@@ -1,29 +1,46 @@
-"""End-to-end request deadlines (copied from ray_tpu's deadlines module).
+"""End-to-end request deadlines: context propagation + enforcement glue.
 
-A deadline is an ABSOLUTE wall-clock instant (epoch seconds,
-``time.time()`` base) so it survives process hops.  The active deadline
-rides a contextvar; ``X-Request-Deadline-Ms`` style values (absolute
-epoch milliseconds) parse through :func:`from_header`, and malformed
-values are ignored, never an error.
+Every robustness layer before this handled crash-stop failures; tail
+latency comes from components that are *slow, not dead* — and nothing
+slow can be routed around unless requests carry a latency bound.  This
+module makes a deadline first-class task metadata, the way trace
+context already is (tracing.py):
 
-The metrics registry is not ported yet, so :func:`count_exceeded` counts
-into the module-level ``EXCEEDED`` dict (where -> count).
+  - A deadline is an ABSOLUTE wall-clock instant (epoch seconds,
+    ``time.time()`` base) so it survives process hops — the gRPC
+    deadline model, not a per-hop timeout that resets at every layer.
+  - The ACTIVE deadline rides a contextvar.  ``.options(timeout_s=…)``
+    stamps ``min(now + timeout_s, ambient)`` into the TaskSpec;
+    the executing worker re-activates the spec's deadline, so nested
+    ``.remote()`` calls and ``get()`` calls inside the task body
+    inherit the caller's remaining budget automatically.
+  - Serve's HTTP ingress continues external deadlines from an
+    ``X-Request-Deadline-Ms`` header (absolute epoch milliseconds);
+    malformed values are ignored, never an error.
+
+Enforcement sites (each increments
+``ray_tpu_deadline_exceeded_total{where=…}``):
+  queued     owner pump / agent lease queue / worker task queue — the
+             task fails fast with DeadlineExceededError WITHOUT running
+  running    the owner's deadline sweep resolves an in-flight task and
+             cancels it on the worker (cooperative, then force)
+  get        ``get()`` spends only the remaining ambient budget
+  admission  the LLM engine refuses sequences whose remaining budget
+             cannot cover prefill + one decode step
 """
 
 from __future__ import annotations
 
 import contextvars
-import threading
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 DEADLINE_HEADER = "x-request-deadline-ms"
 
 _current: "contextvars.ContextVar[Optional[float]]" = \
     contextvars.ContextVar("rt_deadline", default=None)
 
-EXCEEDED: Dict[str, int] = {}
-_exceeded_lock = threading.Lock()
+_metric = None
 
 
 def current_deadline() -> Optional[float]:
@@ -45,7 +62,8 @@ def restore(token) -> None:
 def effective_deadline(timeout_s: Optional[float] = None,
                        now: Optional[float] = None) -> Optional[float]:
     """Combine an explicit per-call timeout with the ambient deadline:
-    the TIGHTER of the two wins.  None when neither applies."""
+    the TIGHTER of the two wins (a callee can shrink its budget, never
+    grow past the caller's).  None when neither applies."""
     ambient = _current.get()
     if timeout_s is None:
         return ambient
@@ -74,8 +92,10 @@ def expired(deadline: Optional[float],
 
 
 def from_header(value) -> Optional[float]:
-    """Parse an absolute epoch-MILLISECONDS deadline.  Malformed or
-    non-positive values return None — the request proceeds unbounded."""
+    """Parse an ``X-Request-Deadline-Ms`` header: absolute epoch
+    MILLISECONDS.  Malformed or non-positive values return None — the
+    request proceeds unbounded, never an error (matching the
+    traceparent contract in tracing.py)."""
     if value is None:
         return None
     try:
@@ -88,7 +108,11 @@ def from_header(value) -> Optional[float]:
 
 
 def count_exceeded(where: str, n: int = 1) -> None:
-    """Count one enforcement (where = queued | running | get |
-    admission) into ``EXCEEDED``."""
-    with _exceeded_lock:
-        EXCEEDED[where] = EXCEEDED.get(where, 0) + n
+    """Increment ``ray_tpu_deadline_exceeded_total{where=…}``
+    (where = queued | running | get | admission)."""
+    global _metric
+    if _metric is None:
+        from ray_tpu_torch._private.metrics import deadline_metrics
+
+        _metric = deadline_metrics()
+    _metric.inc(n, tags={"where": where})

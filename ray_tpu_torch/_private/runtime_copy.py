@@ -1,0 +1,104 @@
+"""Which runtime modules the port copies from ray_tpu, and how.
+
+The actor runtime (head, node agents, workers, the object store and the
+RPC plane) is pure Python and runs the same on a GPU host as on a TPU
+host.  The port keeps its own copy of it: a copied module is ray_tpu's
+file with its module paths renamed by :func:`rename`, nothing else.  A
+module whose accelerator-specific part had to change for the GPU is
+*ported* instead, and :data:`PORTED` says why.
+``tests/test_torch_runtime.py`` re-applies :func:`rename` to every
+module of :data:`COPIED` and requires the port's file to equal it.
+
+Refresh the copies after a change to ray_tpu's runtime with::
+
+    python -m ray_tpu_torch._private.runtime_copy
+
+which reads the sources as text (it imports nothing of ray_tpu) and
+rewrites the copied files; ported files are left to be merged by hand.
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Dict, List
+
+# paths relative to the package root (ray_tpu/ and ray_tpu_torch/)
+COPIED: List[str] = [
+    "_private/config.py",
+    "_private/errors.py",
+    "_private/deadlines.py",
+    "_private/ids.py",
+    "_private/fault_injection.py",
+    "_private/profiling.py",
+    "_private/tracing.py",
+    "_private/metrics.py",
+    "_private/rpc.py",
+    "_native/copyfast.c",
+    "_private/object_store.py",
+    "_private/memory_store.py",
+    "_private/object_ref.py",
+    "_private/reference_count.py",
+    "_private/object_directory.py",
+    "_private/object_transfer.py",
+    "_private/streaming.py",
+    "_private/task_spec.py",
+    "_private/resources.py",
+    "_private/scheduler.py",
+    "_private/function_manager.py",
+    "_private/runtime_env.py",
+    "_private/head_shards.py",
+    "_private/node.py",
+    "_private/memory_monitor.py",
+    "_private/log_monitor.py",
+    "util/scheduling_strategies.py",
+]
+
+PORTED: Dict[str, str] = {
+    "_private/accelerators.py":
+        "the GPU count only: TPU slice metadata and TPU-* resources go",
+    "_private/serialization.py":
+        "torch tensors: CPU tensors out-of-band, CUDA tensors via the host",
+    "_native/__init__.py":
+        "builds into ray_tpu_torch/_build/, not ~/.cache",
+    "_private/spawn.py":
+        "no JAX site hook; PYTHONPATH names the port's repo root",
+    "_private/worker_main.py":
+        "no JAX site hook",
+    "_private/node_agent.py":
+        "assigns GPU indices (gpu_ids) behind the fungible GPU count",
+    "_private/head.py":
+        "forwards a lease's gpu_ids with an actor's creation push",
+    "_private/worker.py":
+        "CUDA_VISIBLE_DEVICES per lease; later slices named on import",
+    "api.py":
+        "num_tpus= goes; num_gpus= maps to the GPU resource",
+    "train/session.py":
+        "names TorchTrainer",
+}
+
+_MODULE_PATH = re.compile(r"\bray_tpu(?=\.[A-Za-z_])")
+_IMPORT = re.compile(r"\b(import|from) ray_tpu\b")
+
+
+def rename(text: str) -> str:
+    """ray_tpu's module paths become the port's: ``ray_tpu.x`` and
+    ``import/from ray_tpu`` name ``ray_tpu_torch``.  Everything else
+    keeps its text, metric names such as ``ray_tpu_actor_restarts_total``
+    among it."""
+    return _IMPORT.sub(r"\1 ray_tpu_torch", _MODULE_PATH.sub("ray_tpu_torch",
+                                                              text))
+
+
+def main() -> None:
+    port = Path(__file__).resolve().parent.parent
+    src = port.parent / "ray_tpu"
+    for rel in COPIED:
+        (port / rel).parent.mkdir(parents=True, exist_ok=True)
+        (port / rel).write_text(rename((src / rel).read_text()))
+    print(f"rewrote {len(COPIED)} copies; merge by hand: "
+          + ", ".join(sorted(PORTED)))
+
+
+if __name__ == "__main__":
+    main()

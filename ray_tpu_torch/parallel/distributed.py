@@ -32,11 +32,12 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
 
     ``device=None`` runs on ``cuda:LOCAL_RANK`` (``LOCAL_RANK`` from the
     environment, else ``process_id`` modulo the visible cards) over
-    nccl, and raises without a GPU; ``device="cpu"`` runs over gloo."""
+    nccl, and raises without a GPU; ``"cuda:i"`` names the card;
+    ``device="cpu"`` runs over gloo."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK",
-                                   process_id % torch.cuda.device_count()))
+        local = dev.index if dev.index is not None else int(os.environ.get(
+            "LOCAL_RANK", process_id % torch.cuda.device_count()))
         dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
         dist.init_process_group("nccl", init_method=_init_method(coordinator),

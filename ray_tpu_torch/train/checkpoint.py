@@ -11,7 +11,8 @@ each process writes its own shards, and restoring into DTensors reads
 each process's shards back; without a process group it runs in this
 process alone.  The tree's shape and its plain values go beside them in
 ``tree.json``, which keeps what DCP's own flattening would lose (the int
-keys of an optimizer's state).
+keys of an optimizer's state).  ``ActorStateCheckpoint`` (copied) keeps
+the pickled snapshots of stateful actors that the runtime restarts.
 """
 
 from __future__ import annotations
@@ -285,3 +286,115 @@ class CheckpointManager:
 
     def latest_checkpoint(self) -> Optional[str]:
         return self._entries[-1]["path"] if self._entries else None
+
+
+class ActorStateCheckpoint:
+    """Pickled-blob snapshots for stateful actor restarts.
+
+    Rides the same StorageContext layer CheckpointManager persists
+    through, but stores one cloudpickle blob per snapshot instead of a
+    checkpoint directory — actor ``__rt_save__`` state is arbitrary
+    Python (counters, KV maps, optimizer trees), and a restart must be
+    able to read it from ANY node that can reach the storage path.
+
+    Layout under the storage root (default <session_dir>/actor_state):
+      <actor_id>/index.json       {"counter": N, "entries": [rel, ...]}
+      <actor_id>/snap_000001.pkl  the snapshots (last `keep` retained)
+
+    The blob is written BEFORE the index (both atomically), so a crash
+    between the two leaves the previous index pointing at intact data —
+    a restart never reads a torn snapshot.
+    """
+
+    INDEX = "index.json"
+
+    def __init__(self, storage: "StorageContext", actor_id: str,
+                 keep: int = 2):
+        self.storage = storage
+        self.prefix = actor_id
+        self.keep = max(1, keep)
+        self._counter = 0
+        self._entries: List[str] = []
+        self._load_index()
+
+    def _rel(self, name: str) -> str:
+        import posixpath
+
+        return posixpath.join(self.prefix, name)
+
+    def _load_index(self) -> None:
+        text = self.storage.read_text(self._rel(self.INDEX))
+        if not text:
+            return
+        try:
+            data = json.loads(text)
+            self._counter = int(data["counter"])
+            self._entries = list(data["entries"])
+        except (ValueError, KeyError):
+            pass  # corrupt index: treat as no snapshots
+
+    def save(self, state: Any) -> str:
+        import cloudpickle
+
+        self._counter += 1
+        name = f"snap_{self._counter:06d}.pkl"
+        self.storage.write_bytes(self._rel(name), cloudpickle.dumps(state))
+        self._entries.append(name)
+        evicted, self._entries = (self._entries[:-self.keep],
+                                  self._entries[-self.keep:])
+        self.storage.write_text(
+            self._rel(self.INDEX),
+            json.dumps({"counter": self._counter,
+                        "entries": self._entries}))
+        for old in evicted:
+            self.storage.remove(self._rel(old))
+        return name
+
+    def entry_names(self) -> List[str]:
+        """Retained snapshot names, oldest first."""
+        return list(self._entries)
+
+    def load_entry(self, name: str) -> Any:
+        """One specific retained snapshot's state, or None when the blob
+        is missing/unreadable.  The pipeline's restart protocol uses this
+        to roll every stage back to a COMMON step: after a mid-step
+        death, stages can hold different latest snapshots (the drained
+        last stage saves step t+1 before upstream stages finish it), so
+        recovery enumerates entries and restores the newest step present
+        on every stage rather than each stage's own latest."""
+        import cloudpickle
+
+        if name not in self._entries:
+            return None
+        blob = self.storage.read_bytes(self._rel(name))
+        if blob is None:
+            return None
+        try:
+            return cloudpickle.loads(blob)
+        except Exception:
+            return None
+
+    def load_latest(self) -> Any:
+        """The newest readable snapshot's state, or None when the actor
+        has never saved (falling back through older snapshots if the
+        newest blob is missing/unreadable)."""
+        import cloudpickle
+
+        for name in reversed(self._entries):
+            blob = self.storage.read_bytes(self._rel(name))
+            if blob is None:
+                continue
+            try:
+                return cloudpickle.loads(blob)
+            except Exception:
+                continue
+        return None
+
+    def has_snapshot(self) -> bool:
+        return bool(self._entries)
+
+    def delete(self) -> None:
+        for name in list(self._entries):
+            self.storage.remove(self._rel(name))
+        self.storage.remove(self._rel(self.INDEX))
+        self._entries = []

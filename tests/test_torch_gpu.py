@@ -249,3 +249,89 @@ def test_one_rank_nccl_step_matches_the_one_device_step(cuda, tmp_path):
         shutdown_distributed()
     for a, b in zip(one_rank, one_device):
         assert abs(a - b) <= 1e-5 * abs(b), (one_rank, one_device)
+
+
+# ---------------------------------------------------------- the runtime
+
+
+@pytest.fixture
+def port_cluster(cuda, tmp_path, monkeypatch):
+    import ray_tpu_torch as rt
+
+    monkeypatch.setenv("RT_TMPDIR", str(tmp_path))
+    rt.init(num_cpus=2, object_store_memory=256 << 20)
+    try:
+        yield rt
+    finally:
+        rt.shutdown()
+
+
+def test_cuda_tensor_through_the_store_lands_on_the_receivers_card(
+        port_cluster):
+    """A CUDA tensor put by the driver comes back bit for bit on the
+    current CUDA device of a GPU-pinned actor, and one returned by the
+    actor lands on the driver's."""
+    rt = port_cluster
+
+    @rt.remote(num_gpus=1)
+    class Receiver:
+        def take(self, boxed):
+            import os
+
+            got = rt.get(boxed[0])
+            return (str(got.device), torch.cuda.current_device(),
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    got.cpu(), got * 2)
+
+    x = torch.randn(1 << 20, device="cuda").to(torch.bfloat16)
+    r = Receiver.remote()
+    device, current, visible, host, doubled = rt.get(
+        r.take.remote([rt.put(x)]), timeout=180)
+    assert device == f"cuda:{current}" and len(visible.split(",")) == 1
+    assert torch.equal(host, x.cpu())
+    assert doubled.is_cuda and torch.equal(doubled, x * 2)
+
+
+def test_train_loop_thread_drives_the_workers_card(port_cluster):
+    """The worker joins its process group on the actor's exec thread and
+    the loop runs in a thread of its own: with the lease's one card
+    visible, both drive cuda:0, and a collective from the loop's thread
+    runs over nccl on it."""
+    import socket
+    import time
+
+    import cloudpickle
+
+    from ray_tpu_torch.train import WorkerGroup
+
+    def loop():
+        import os
+
+        import torch.distributed as dist
+
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        return {"current": torch.cuda.current_device(),
+                "count": torch.cuda.device_count(),
+                "backend": dist.get_backend(), "sum": float(x.sum()),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    group = WorkerGroup(1, {"GPU": 1})
+    try:
+        assert group.execute("init_distributed", f"localhost:{port}", 1,
+                             0, timeout=180) == [1]
+        group.execute("run_async", cloudpickle.dumps(loop), None)
+        for _ in range(1200):
+            (p,) = group.execute("poll")
+            if p["done"]:
+                break
+            time.sleep(0.05)
+        assert p["error"] is None and p["done"]
+        assert p["final"] == {"current": 0, "count": 1, "backend": "nccl",
+                              "sum": 4.0, "visible": p["final"]["visible"]}
+        assert len(p["final"]["visible"].split(",")) == 1
+    finally:
+        group.shutdown()

@@ -4,6 +4,7 @@ CPU on their own."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -190,3 +191,53 @@ def test_build_is_content_addressed():
     assert a == _build.library_path("paged_attention")
     ignored = (REPO / ".gitignore").read_text().split()
     assert "ray_tpu_torch/_build/" in ignored
+
+
+# ---------------------------------------------- what the daemons spawn
+
+
+def _strings(path: Path):
+    """(line, text) of every string constant that is not a docstring."""
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.lineno, node.value
+
+
+def test_no_ray_tpu_module_path_left_in_a_string():
+    """The rename left no ``ray_tpu.`` module path in a string the
+    runtime imports, spawns or looks up (``-m`` targets, sys.modules
+    keys, import_module names)."""
+    bad = [f"{p.relative_to(REPO)}:{line}: {s!r}"
+           for p in sorted((REPO / "ray_tpu_torch").rglob("*.py"))
+           if p.name not in ("runtime_copy.py",)
+           for line, s in _strings(p)
+           if re.search(r"\bray_tpu\.[A-Za-z_]", s)]
+    assert bad == []
+
+
+def test_daemons_spawn_the_ports_own_modules():
+    """node.py starts ray_tpu_torch's head and agent, and the agent
+    starts ray_tpu_torch's worker_main, all with -S and a PYTHONPATH
+    that leads to this checkout (test_torch_runtime.py checks a live
+    worker's argv)."""
+    from ray_tpu_torch._private import spawn
+
+    cmd, env = spawn.fast_python_cmd("ray_tpu_torch._private.worker_main")
+    assert cmd[1:4] == ["-S", "-m", "ray_tpu_torch._private.worker_main"]
+    assert str(REPO) in env["PYTHONPATH"].split(os.pathsep)
+    agent_src = (REPO / "ray_tpu_torch" / "_private" / "node_agent.py").read_text()
+    assert 'fast_python_cmd("ray_tpu_torch._private.worker_main")' \
+        in agent_src
+    node_src = (REPO / "ray_tpu_torch" / "_private" / "node.py").read_text()
+    assert '"ray_tpu_torch._private.head"' in node_src
+    assert '"ray_tpu_torch._private.node_agent"' in node_src
+    assert "ray_tpu." not in agent_src.replace("ray_tpu_torch.", "")

@@ -330,9 +330,20 @@ def test_save_restore_resumes_generation():
     assert [i for i, _ in flat] == list(range(k - 1, 6))
 
 
+def _exceeded(where):
+    """ray_tpu_deadline_exceeded_total{where=...} as the metrics registry
+    renders it."""
+    from ray_tpu_torch._private.metrics import deadline_metrics
+
+    prefix = f'ray_tpu_deadline_exceeded_total{{where="{where}"}} '
+    return next((float(line[len(prefix):]) for line in
+                 deadline_metrics().render() if line.startswith(prefix)),
+                0.0)
+
+
 def test_deadline_admission_and_expiry():
     eng = _port()
-    before = dict(deadlines.EXCEEDED)
+    before = {w: _exceeded(w) for w in ("admission", "running")}
     token = deadlines.activate(time.time() - 0.5)
     try:
         with pytest.raises(DeadlineExceededError) as ei:
@@ -355,10 +366,8 @@ def test_deadline_admission_and_expiry():
     with pytest.raises(DeadlineExceededError):
         list(eng.iter_tokens(s, len(s.generated)))
     assert eng.stats()["used_pages"] == 0
-    assert deadlines.EXCEEDED.get("admission", 0) \
-        == before.get("admission", 0) + 2
-    assert deadlines.EXCEEDED.get("running", 0) \
-        == before.get("running", 0) + 1
+    assert _exceeded("admission") == before["admission"] + 2
+    assert _exceeded("running") == before["running"] + 1
 
 
 def test_loop_single_flight_and_stop():
