@@ -30,7 +30,14 @@ bit, two GPU tasks on disjoint cards of a cluster that claims two; the
 train phase's configuration through ``TorchTrainer`` in a GPU-pinned
 actor, whose six losses must match the train phase's; and a worker
 killed mid-run whose resumed losses must equal an uninterrupted run's
-bit for bit.  Each phase
+bit for bit.  Then serving through that runtime, behind the HTTP proxy:
+the serve phase's engine and prompts in a ``num_gpus=1`` replica, as
+concurrent SSE streams (client TTFT, the replica's decode step, its
+paged launches counted inside it); 2 layers in fp32 through a replica,
+bit for bit against the in-process engine; and disaggregated prefill,
+a prefill and a decode replica at ``num_gpus=0.5`` each on the one
+card, a 1000-token prompt's KV pack timed through the object store,
+then in fp32 at 2 layers against one replica's tokens.  Each phase
 prints one JSON line; a failed check raises, so the script exits
 non-zero.  The last lines are the card's name and power limit (from
 nvidia-smi), then {"ok": true, "device": {...}}.
@@ -62,6 +69,7 @@ from ray_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
+from ray_tpu_torch.serve.llm import _LLMCallable
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
@@ -381,7 +389,7 @@ def phase_forward(gen) -> int:
     return launches
 
 
-def phase_serve() -> int:
+def phase_serve() -> tuple:
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = LlamaConfig.llama3_8b()
@@ -392,15 +400,8 @@ def phase_serve() -> int:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
-
-    def toks(n):
-        return rng.integers(0, cfg.vocab_size, n).tolist()
-
-    prompts = [toks(16), toks(100), prefix + toks(40), toks(500),
-               toks(1000), toks(37), toks(700)]
-    late_prompt = prefix + toks(70)   # joins mid-flight, shares a prefix
-    max_new = 32
+    prompts, late_prompt = _serve_prompts(cfg, rng)   # the last joins late
+    max_new = SERVE_NEW_TOKENS
     pa.LAUNCHES = 0
     t0 = time.perf_counter()
     seqs = [eng.submit({"tokens": p, "max_new_tokens": max_new})
@@ -446,7 +447,9 @@ def phase_serve() -> int:
     phase_decode_profile(eng, rng)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, {"decode_step_ms": st["decode_secs"]
+                      / st["decode_steps"] * 1e3, "ttft_s": ttft,
+                      "ttft_median_s": statistics.median(ttft)}
 
 
 def phase_decode_profile(eng, rng, steps: int = 5) -> None:
@@ -1385,6 +1388,404 @@ def phase_runtime_and_trainers(train: dict) -> int:
     return launches
 
 
+# ------------------------------------------------- serving through the runtime
+
+SERVE_KW = dict(max_batch=8, page_size=16, prefill_chunk=64,
+                prefix_sharing=True)
+SERVE_NEW_TOKENS = 32
+SERVE_TIMEOUT_S = 600
+
+
+class CountedLLM(_LLMCallable):
+    """The ``llm_deployment`` replica target with the paged kernel's
+    launch count of its own process: set to 0 and read around the
+    traffic, with the engine's stats at each end."""
+
+    def reset_launches(self) -> dict:
+        pa.LAUNCHES = 0
+        return self._engine.stats()
+
+    def launches(self) -> dict:
+        return {"paged_launches": pa.LAUNCHES,
+                "stats": self._engine.stats(),
+                "device": str(self._engine.device),
+                "device_name": torch.cuda.get_device_name()
+                if torch.cuda.is_available() else None,
+                "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+class ShippingLLM(CountedLLM):
+    """CountedLLM that also times the KV pack's trip through the object
+    store: ``prefill`` (the prefill replica) times packing and the put,
+    ``__call__`` (the decode replica) the get and unpacking, and
+    ``transfers`` returns what it timed.  Both otherwise do what
+    _LLMCallable's do."""
+
+    def _log(self) -> list:
+        if not hasattr(self, "_transfers"):
+            self._transfers = []
+        return self._transfers
+
+    def prefill(self, request):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private.object_transfer import pack_kv_pages
+
+        payload = self._engine.prefill_request(request)
+        meta = payload["meta"]
+        t0 = time.perf_counter()
+        buf = pack_kv_pages(meta, payload["rows"])
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = rt.put(buf)
+        put_s = time.perf_counter() - t0
+        self._log().append({"side": "prefill", "nbytes": len(buf),
+                            "pack_s": pack_s, "put_s": put_s})
+        return {"request_id": meta["request_id"], "kv_ref": ref,
+                "first_token": meta["first_token"], "n": meta["n"],
+                "pages": meta["pages"], "nbytes": len(buf)}
+
+    def __call__(self, request):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch._private.object_transfer import unpack_kv_pages
+
+        kv_pack = None
+        if isinstance(request, dict) and request.get("kv_ref") is not None:
+            request = dict(request)
+            ref = request.pop("kv_ref")
+            t0 = time.perf_counter()
+            buf = rt.get(ref, timeout=30.0)
+            get_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            kv_pack = unpack_kv_pages(buf)
+            self._log().append({"side": "decode", "nbytes": len(buf),
+                                "get_s": get_s,
+                                "unpack_s": time.perf_counter() - t0})
+            del buf
+        seq = self._engine.submit(request, kv_pack=kv_pack)
+        try:
+            yield from self._engine.iter_tokens(seq, 0)
+        finally:
+            self._engine.release(seq)
+
+    def transfers(self) -> list:
+        return list(self._log())
+
+
+def _sse_stream(addr, name: str, payload: dict, out: dict) -> None:
+    """One SSE request: fills ``out`` with the send time, the arrival of
+    the first item, the items and the status."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=SERVE_TIMEOUT_S)
+    try:
+        out["sent"] = time.perf_counter()
+        conn.request("POST", f"/{name}", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json",
+                              "Accept": "text/event-stream"})
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        items = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if line.strip():
+                if not items:
+                    out["first_item"] = time.perf_counter()
+                items.append(json.loads(line))
+        out["items"] = items
+    except Exception as exc:   # the check below reports it
+        out["error"] = f"{type(exc).__name__}: {exc}"
+    finally:
+        conn.close()
+
+
+def _stream_tokens(row: dict, n_new: int, vocab: int, what: str) -> list:
+    """The tokens of one finished stream, after checking it: status 200,
+    ``n_new`` in-range tokens at indices 0..n_new-1, ``done`` last."""
+    check("error" not in row and row.get("status") == 200,
+          f"{what}: {row.get('status')} {row.get('error')}")
+    items = row["items"]
+    flat = [(it["i"] + j, t) for it in items
+            for j, t in enumerate(it["tokens"])]
+    check([i for i, _ in flat] == list(range(n_new)),
+          f"{what}: indices {[i for i, _ in flat]}")
+    check(all(0 <= t < vocab for _, t in flat), f"{what}: token out of range")
+    check(items[-1]["done"] is True
+          and not any(it["done"] for it in items[:-1]),
+          f"{what}: done is not last")
+    return [t for _, t in flat]
+
+
+def _serial_tokens(addr, name: str, prompts, n_new: int, vocab: int):
+    out = []
+    for i, p in enumerate(prompts):
+        row = {}
+        _sse_stream(addr, name, {"tokens": p, "max_new_tokens": n_new}, row)
+        out.append(_stream_tokens(row, n_new, vocab, f"{name}[{i}]"))
+    return out
+
+
+def _serve_prompts(cfg, rng):
+    """The serve phase's 8 prompts drawn from ``rng``, the last of which
+    shares a 256-token prefix with the third and joins late."""
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+
+    def toks(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    prompts = [toks(16), toks(100), prefix + toks(40), toks(500),
+               toks(1000), toks(37), toks(700)]
+    return prompts, prefix + toks(70)
+
+
+def phase_serve_runtime(addr, inprocess: dict) -> int:
+    """The serve phase's engine (full-width, full-depth llama3_8b, bf16)
+    behind ``llm_deployment``'s replica target in a ``num_gpus=1``
+    replica, its 8 prompts as concurrent SSE requests through the HTTP
+    proxy, the prefix-sharing one late.  Returns the paged launches the
+    replica made for them."""
+    import threading
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.api import Deployment
+
+    import chip_smoke as this
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    handle = serve.run(Deployment(
+        this.CountedLLM, "llm8b", llm=True,
+        ray_actor_options={"num_gpus": 1}).bind(
+            model=cfg, seed=SEED, **SERVE_KW))
+    deploy_s = time.perf_counter() - t0
+    prompts, late = _serve_prompts(cfg, np.random.default_rng(SEED))
+    before = rt_get(handle.method("reset_launches")())
+    rows = [{} for _ in range(len(prompts) + 1)]
+    threads = [threading.Thread(
+        target=_sse_stream, args=(addr, "llm8b", {
+            "tokens": p, "max_new_tokens": SERVE_NEW_TOKENS}, rows[i]))
+        for i, p in enumerate(prompts + [late])]
+    t0 = time.perf_counter()
+    for t in threads[:-1]:
+        t.start()
+    # the prefix-sharing request joins once three streams are flowing
+    while sum("first_item" in r for r in rows[:-1]) < 3 \
+            and time.perf_counter() - t0 < SERVE_TIMEOUT_S \
+            and any(t.is_alive() for t in threads[:-1]):
+        time.sleep(0.005)
+    threads[-1].start()
+    for t in threads:
+        t.join(SERVE_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    after = rt_get(handle.method("launches")())
+    for i, r in enumerate(rows):
+        _stream_tokens(r, SERVE_NEW_TOKENS, cfg.vocab_size, f"llm8b[{i}]")
+    st0, st = before, after["stats"]
+    steps = st["decode_steps"] - st0["decode_steps"]
+    secs = st["decode_secs"] - st0["decode_secs"]
+    launches = after["paged_launches"]
+    check(st["used_pages"] == 0, f"serve_runtime: pages in use {st}")
+    check(st["prefix_hits"] > st0["prefix_hits"],
+          f"serve_runtime: no prefix hit {st}")
+    check(steps > 0 and launches == cfg.n_layers * steps,
+          f"serve_runtime: paged launches {launches} != {cfg.n_layers} x "
+          f"{steps}")
+    check(after["device"].startswith("cuda")
+          and after["cuda_visible_devices"],
+          f"serve_runtime: the replica runs on {after['device']}")
+    ttft = [r["first_item"] - r["sent"] for r in rows]
+    emit("serve_runtime", config="llama3_8b", n_layers=cfg.n_layers,
+         dtype="bfloat16", replicas=1, num_gpus=1, requests=len(rows),
+         prompt_lens=[len(p) for p in prompts + [late]],
+         max_new_tokens=SERVE_NEW_TOKENS, deploy_s=deploy_s, wall_s=wall_s,
+         ttft_client_s=ttft, ttft_client_median_s=statistics.median(ttft),
+         ttft_client_max_s=max(ttft), decode_steps=steps,
+         decode_secs=secs, decode_step_ms=secs / steps * 1e3,
+         paged_launches=launches, used_pages=st["used_pages"],
+         prefix_hits=st["prefix_hits"] - st0["prefix_hits"],
+         replica_device=after["device_name"],
+         replica_cuda_visible_devices=after["cuda_visible_devices"],
+         inprocess_decode_step_ms=inprocess["decode_step_ms"],
+         inprocess_ttft_median_s=inprocess["ttft_median_s"],
+         inprocess_ttft_max_s=max(inprocess["ttft_s"]))
+    serve.delete("llm8b")
+    return launches
+
+
+def _identity_cfg():
+    import dataclasses
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                               dtype=torch.float32)
+
+
+def _identity_prompts(cfg):
+    rng = np.random.default_rng(SEED + 2)
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (5, 100, 17, 300)]
+
+
+DISAGG_PROMPT_LEN = 1000
+IDENTITY_NEW_TOKENS = 8
+
+
+def _disagg_prompt(cfg):
+    return np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab_size, DISAGG_PROMPT_LEN).tolist()
+
+
+def phase_serve_runtime_identity(addr) -> list:
+    """2 layers at 8B width, fp32, through ``llm_deployment`` in a
+    ``num_gpus=1`` replica: each prompt alone, over SSE; the tokens must
+    equal the in-process engine's with the same seed bit for bit.
+    Returns the replica's tokens for the disaggregated phase's prompt."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = _identity_cfg()
+    prompts = _identity_prompts(cfg) + [_disagg_prompt(cfg)]
+    serve.run(serve.llm_deployment(
+        "ident", ray_actor_options={"num_gpus": 1}, model=cfg, seed=SEED,
+        **SERVE_KW))
+    got = _serial_tokens(addr, "ident", prompts, IDENTITY_NEW_TOKENS,
+                         cfg.vocab_size)
+    serve.delete("ident")
+    eng = LLMEngine(cfg, seed=SEED, **SERVE_KW)
+    want = [eng.generate_batch([{"tokens": p,
+                                 "max_new_tokens": IDENTITY_NEW_TOKENS}])[0]
+            for p in prompts]
+    check(eng.stats()["used_pages"] == 0, "identity: pages leaked")
+    del eng
+    torch.cuda.empty_cache()
+    check(got == want, f"serve_runtime_identity: replica {got} vs "
+          f"in-process {want}")
+    emit("serve_runtime_identity", config="llama3_8b width, 2 layers, fp32",
+         prompt_lens=[len(p) for p in prompts],
+         max_new_tokens=IDENTITY_NEW_TOKENS, tokens=got, bitwise=True)
+    return got[-1]
+
+
+def phase_serve_disagg(addr, plain_tokens: list) -> int:
+    """``llm_deployment(prefill_replicas=1)`` with both pools at
+    ``num_gpus=0.5`` on the one card: a 1000-token prompt is prefilled on
+    the prefill replica, its KV pack goes through the object store and
+    the decode replica decodes it.  First at 8B width and full depth in
+    bf16, with the pack's trip timed; then in fp32 at 2 layers, where
+    the tokens must equal the non-disaggregated replica's.  Returns the
+    paged launches the 8B decode replica made."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.api import Deployment
+
+    import chip_smoke as this
+
+    cfg = LlamaConfig.llama3_8b()
+    prompt = _disagg_prompt(cfg)
+    t0 = time.perf_counter()
+    decode = serve.run(Deployment(
+        this.ShippingLLM, "disagg8b", llm=True, prefill_replicas=1,
+        ray_actor_options={"num_gpus": 0.5}).bind(
+            model=cfg, seed=SEED, **SERVE_KW))
+    deploy_s = time.perf_counter() - t0
+    prefill = serve.get_handle("disagg8b-prefill")
+    before = rt_get(decode.method("reset_launches")())
+    row = {}
+    _sse_stream(addr, "disagg8b", {"tokens": prompt,
+                                   "max_new_tokens": SERVE_NEW_TOKENS}, row)
+    _stream_tokens(row, SERVE_NEW_TOKENS, cfg.vocab_size, "disagg8b")
+    std = rt_get(decode.method("launches")())
+    stp = rt_get(prefill.method("launches")())
+    shipped = rt_get(prefill.method("transfers")())
+    received = rt_get(decode.method("transfers")())
+    pages = -(-DISAGG_PROMPT_LEN // SERVE_KW["page_size"])
+    steps = std["stats"]["decode_steps"] - before["decode_steps"]
+    launches = std["paged_launches"]
+    check(steps > 0 and launches == cfg.n_layers * steps,
+          f"serve_disagg: decode replica's paged launches {launches} != "
+          f"{cfg.n_layers} x {steps}")
+    for side, info in (("decode", std), ("prefill", stp)):
+        check(info["device"].startswith("cuda")
+              and info["cuda_visible_devices"],
+              f"serve_disagg: the {side} replica runs on {info['device']}")
+        check(info["stats"]["used_pages"] == 0,
+              f"serve_disagg: {side} pages in use {info['stats']}")
+    check(stp["stats"]["kv_pages_shipped_out"] >= pages
+          and std["stats"]["kv_pages_shipped_in"] >= pages,
+          f"serve_disagg: shipped out {stp['stats']['kv_pages_shipped_out']}"
+          f", in {std['stats']['kv_pages_shipped_in']} (want {pages})")
+    check(len(shipped) == 1 and len(received) == 1
+          and shipped[0]["nbytes"] == received[0]["nbytes"],
+          f"serve_disagg: transfers {shipped} / {received}")
+    serve.delete("disagg8b")
+    serve.delete("disagg8b-prefill")
+
+    small = _identity_cfg()
+    serve.run(serve.llm_deployment(
+        "disagg2", prefill_replicas=1, ray_actor_options={"num_gpus": 0.5},
+        model=small, seed=SEED, **SERVE_KW))
+    got = _serial_tokens(addr, "disagg2", [_disagg_prompt(small)],
+                         IDENTITY_NEW_TOKENS, small.vocab_size)[0]
+    st2 = rt_get(serve.get_handle("disagg2").method("stats")())
+    check(st2["kv_pages_shipped_in"] >= pages,
+          f"serve_disagg: the fp32 decode replica prefilled itself {st2}")
+    check(got == plain_tokens, f"serve_disagg: disaggregated {got} vs "
+          f"one replica {plain_tokens}")
+    serve.delete("disagg2")
+    serve.delete("disagg2-prefill")
+    nbytes = shipped[0]["nbytes"]
+    emit("serve_disagg", config="llama3_8b", n_layers=cfg.n_layers,
+         dtype="bfloat16", num_gpus_each=0.5, prompt_len=DISAGG_PROMPT_LEN,
+         max_new_tokens=SERVE_NEW_TOKENS, deploy_s=deploy_s,
+         ttft_client_s=row["first_item"] - row["sent"],
+         kv_pages_shipped_out=stp["stats"]["kv_pages_shipped_out"],
+         kv_pages_shipped_in=std["stats"]["kv_pages_shipped_in"],
+         pack_bytes=nbytes, pack_s=shipped[0]["pack_s"],
+         put_s=shipped[0]["put_s"], get_s=received[0]["get_s"],
+         unpack_s=received[0]["unpack_s"],
+         put_gb_s=nbytes / shipped[0]["put_s"] / 1e9,
+         get_gb_s=nbytes / received[0]["get_s"] / 1e9,
+         used_pages={"prefill": stp["stats"]["used_pages"],
+                     "decode": std["stats"]["used_pages"]},
+         decode_steps=steps, paged_launches=launches,
+         fp32_2_layers={"tokens": got, "equal_to_one_replica": True,
+                        "kv_pages_shipped_in": st2["kv_pages_shipped_in"]})
+    return launches
+
+
+def rt_get(ref):
+    import ray_tpu_torch as rt
+
+    return rt.get(ref, timeout=SERVE_TIMEOUT_S)
+
+
+def phase_serving(inprocess: dict) -> int:
+    """The serving phases on one port cluster with the HTTP proxy, the
+    session directories in a temporary directory; returns the paged
+    launches the serve_runtime and serve_disagg decode replicas made."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["RT_TMPDIR"] = tmp
+        rt.init(object_store_memory=RUNTIME_STORE_BYTES)
+        try:
+            addr = serve.start_http()
+            launches = phase_serve_runtime(addr, inprocess)
+            plain = phase_serve_runtime_identity(addr)
+            launches += phase_serve_disagg(addr, plain)
+        finally:
+            for stop in (serve.shutdown_http, serve.shutdown):
+                try:
+                    stop()
+                except Exception:
+                    pass
+            rt.shutdown()
+    return launches
+
+
 def _mesh_spec(arg: str) -> dict:
     """"fsdp=2,sp=2" -> {"fsdp": 2, "sp": 2}."""
     return {k: int(v) for k, v in (kv.split("=") for kv in arg.split(","))}
@@ -1416,7 +1817,7 @@ def main(argv) -> int:
     paged = phase_kernel_paged(gen)
     flash = phase_kernel_flash(gen)
     flash_launches = phase_forward(gen)
-    paged_launches = phase_serve()
+    paged_launches, served = phase_serve()
     phase_serve_identity()
     train_launches, train = phase_train()
     flash_launches += train_launches
@@ -1425,6 +1826,7 @@ def main(argv) -> int:
     phase_ring_blocks(gen)
     flash_launches += phase_dist_train(train)
     flash_launches += phase_runtime_and_trainers(train)
+    paged_launches += phase_serving(served)
     kernels = []
     for name, row, launches, source, replaces in (
             ("flash_attention", flash, flash_launches,

@@ -6,12 +6,16 @@ shared-memory object store), with GPU leases pinned per task or actor
 through ``CUDA_VISIBLE_DEVICES`` and torch tensors in the object store.
 On top of it the flagship Llama model, its two attention kernels (flash
 prefill and paged decode, hand-written CUDA for Hopper under ``csrc/``),
-the continuous-batching LLM engine, and training on one card, over a
-torch.distributed mesh (dp/fsdp/tp/sp, ring attention) or through
-``train.TorchTrainer`` in GPU-pinned actors.  The package imports
-``torch`` and numpy and nothing of ``ray_tpu``; where it needs a
-pure-Python module from there it keeps its own copy
-(``_private/runtime_copy.py`` lists them).
+the continuous-batching LLM engine, served through the runtime
+(``serve``: the controller, replicas, handles and the HTTP/SSE proxy,
+with ``serve.llm_deployment`` replicas running the engine's pinned
+decode loop, disaggregated prefill among them), and training on one
+card, over a torch.distributed mesh (dp/fsdp/tp/sp, ring attention) or
+through ``train.TorchTrainer`` in GPU-pinned actors.  A fractional
+``num_gpus`` takes a share of one card.  The package imports ``torch``
+and numpy and nothing of ``ray_tpu``; where it needs a pure-Python
+module from there it keeps its own copy (``_private/runtime_copy.py``
+lists them).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 with no GPU and no explicit ``"cpu"`` they raise instead of quietly

@@ -15,14 +15,12 @@ import importlib.abc
 import sys
 from typing import Dict
 
-SERVING = "serving through the runtime (ROADMAP A7)"
-PIPELINE = "the MPMD pipeline slice (ROADMAP A9)"
-LIBRARIES = "the pure-Python libraries still to copy (ROADMAP A12)"
+PIPELINE = "the MPMD pipeline slice (ROADMAP A3)"
+LIBRARIES = "the pure-Python libraries still to copy (ROADMAP A5)"
 
 LATER: Dict[str, str] = {
     "ray_tpu_torch.dag": PIPELINE,
     "ray_tpu_torch.train.pipeline": PIPELINE,
-    "ray_tpu_torch.serve.llm.run_llm_loop": SERVING,
     "ray_tpu_torch.util.collective": LIBRARIES,
     "ray_tpu_torch.util.state": LIBRARIES,
     "ray_tpu_torch._private.dashboard": LIBRARIES,

@@ -8,12 +8,21 @@ large to inline are represented by an IN_PLASMA sentinel that redirects
 
 Thread model: the user thread blocks in `wait_ready`; the RPC IO thread
 calls `set_*` — coordination is a per-entry threading.Event.
+
+Ported from ray_tpu's memory store for one fault: a garbage collection
+that runs inside one of the store's locked regions (an allocation there
+can start one) may free the last ObjectRef of an owned object, whose
+``__del__`` reaches :meth:`MemoryStore.evict` on the same thread
+(object_ref.py ``__del__`` -> worker ``_free_object``).  The store's lock
+is not reentrant, so that evict would wait on itself forever.  The lock
+here knows its holder: an evict from the holding thread is deferred and
+applied as the holder leaves its region.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 class _Entry:
@@ -30,10 +39,37 @@ class _Entry:
         self.waiters: Dict[int, Any] = {}  # token -> callback
 
 
+class _StoreLock:
+    """The store's non-reentrant lock, which knows the thread holding it
+    and applies the evictions deferred while it was held."""
+
+    __slots__ = ("_lock", "owner", "deferred", "_entries")
+
+    def __init__(self, entries: Dict[str, "_Entry"]):
+        self._lock = threading.Lock()
+        self.owner: Optional[int] = None
+        self.deferred: List[str] = []
+        self._entries = entries
+
+    def __enter__(self):
+        self._lock.acquire()
+        self.owner = threading.get_ident()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            # a collection during these pops may defer more: drain to empty
+            while self.deferred:
+                self._entries.pop(self.deferred.pop(), None)
+        finally:
+            self.owner = None
+            self._lock.release()
+
+
 class MemoryStore:
     def __init__(self):
-        self._lock = threading.Lock()
         self._entries: Dict[str, _Entry] = {}
+        self._lock = _StoreLock(self._entries)
         self._waiter_tokens = 0
 
     def _entry(self, oid: str) -> _Entry:
@@ -164,5 +200,10 @@ class MemoryStore:
                 e.waiters.pop(token, None)
 
     def evict(self, oid: str) -> None:
+        if self._lock.owner == threading.get_ident():
+            # reached from a collection inside this thread's own locked
+            # region: waiting would deadlock, so the region's exit pops it
+            self._lock.deferred.append(oid)
+            return
         with self._lock:
             self._entries.pop(oid, None)

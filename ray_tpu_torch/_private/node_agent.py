@@ -2,7 +2,8 @@
 
 Ported from ray_tpu's node agent: the concrete accelerators behind the
 fungible count are GPUs (``gpu_ids``, entries of the agent's own
-CUDA_VISIBLE_DEVICES list) instead of TPU chips.
+CUDA_VISIBLE_DEVICES list) instead of TPU chips, and a fractional GPU
+demand takes a share of one card (:class:`GpuShares`).
 
 Equivalent role to the reference's raylet
 (reference: src/ray/raylet/node_manager.h:125, worker_pool.h:104,
@@ -92,9 +93,61 @@ def _is_hard_strategy(strategy: Dict[str, Any]) -> bool:
             or (stype == "node_affinity" and not strategy.get("soft")))
 
 
+class GpuShares:
+    """The free share of each card behind the fungible "GPU" count, as
+    upstream Ray's GPU instance accounting keeps it (in 1/10000ths of a
+    card, so shares add up exactly).
+
+    A demand ``n`` takes ``int(n)`` whole free cards, lowest index
+    first, and its remainder ``n - int(n)``, if any, as a share of the
+    lowest-indexed card with that much left: ``num_gpus=0.5`` twice
+    puts both leases on card 0, and both see it.  So a non-integer
+    demand above 1, say 1.5, takes one whole card and half of another,
+    and the shares taken always sum to the demand the scheduler counted.
+    Demands the fungible count admits normally fit; only mixed
+    fractions can leave every card short of a remainder (0.6 and 0.6 on
+    two cards, then 0.8), and then it takes the card with the most
+    share left, which is over-committed until a share comes back.  The
+    shares go back with the lease."""
+
+    UNITS = 10000
+
+    def __init__(self, card_ids: List[str]):
+        self._free: Dict[str, int] = {c: self.UNITS for c in card_ids}
+
+    def take(self, n: float) -> Dict[str, int]:
+        """Claim ``n`` cards' worth; returns {card id: units}, in card
+        order."""
+        units = int(round(float(n) * self.UNITS))
+        whole, rest = divmod(max(units, 0), self.UNITS)
+        taken: Dict[str, int] = {}
+        for card, free in self._free.items():
+            if len(taken) == whole:
+                break
+            if free == self.UNITS:
+                taken[card] = self.UNITS
+        if rest:
+            left = [c for c in self._free if c not in taken]
+            fits = [c for c in left if self._free[c] >= rest]
+            if fits or left:
+                card = fits[0] if fits else max(
+                    left, key=lambda c: self._free[c])
+                taken[card] = rest
+        for card, amount in taken.items():
+            self._free[card] -= amount
+        return {c: taken[c] for c in self._free if c in taken}
+
+    def give_back(self, taken: Dict[str, int]) -> None:
+        for card, amount in taken.items():
+            if card in self._free:
+                self._free[card] = min(self.UNITS,
+                                       self._free[card] + amount)
+
+
 class _Lease:
     __slots__ = ("lease_id", "worker", "resources", "bundle_key", "seq",
-                 "gpu_ids", "blocked", "donated", "owner_conn",
+                 "gpu_ids", "gpu_shares", "blocked", "donated",
+                 "owner_conn",
                  "owner_id", "owner_addr", "retriable", "fid", "task_name")
 
     def __init__(self, lease_id: str, worker: _Worker, resources: ResourceSet,
@@ -106,8 +159,10 @@ class _Lease:
         self.resources = resources
         self.bundle_key = bundle_key
         self.seq = seq  # grant order; the OOM policy kills newest first
-        # CUDA_VISIBLE_DEVICES entries assigned to this lease
+        # CUDA_VISIBLE_DEVICES entries assigned to this lease, and the
+        # share of each it holds (GpuShares units)
         self.gpu_ids: List[str] = []
+        self.gpu_shares: Dict[str, int] = {}
         # the connection the grant went out on — lets the agent push a
         # reclaim request to the owner when new demand queues behind
         # idle-lingering leases (reference: the raylet's lease revocation
@@ -188,9 +243,9 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         # card is the agent's first visible entry, which need not be
         # physical card 0.
         visible = visible_devices() or []
-        self._free_gpu_ids: List[str] = [
+        self._gpu_shares = GpuShares([
             visible[i] if i < len(visible) else str(i)
-            for i in range(int(resources.get(GPU_RESOURCE, 0)))]
+            for i in range(int(resources.get(GPU_RESOURCE, 0)))])
         self.local = LocalScheduler(self.resources)
         # placement-group bundles reserved on this node: "pgid:idx" ->
         # LocalScheduler over the reserved resources (reference:
@@ -1409,7 +1464,7 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         if w.lease_id is not None:
             lease = self._leases.pop(w.lease_id, None)
             if lease is not None:
-                self._free_gpu_ids.extend(lease.gpu_ids)
+                self._gpu_shares.give_back(lease.gpu_shares)
                 self._release_lease_resources(lease)
         self.store.release_client(worker_id)
         if self._head is not None:
@@ -2141,11 +2196,10 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
                        fid=ts.function_id if ts is not None else "",
                        task_name=(ts.name or ts.method_name)
                        if ts is not None else "")
-        n_gpu = int(demand.to_dict().get(GPU_RESOURCE, 0))
-        take = min(n_gpu, len(self._free_gpu_ids))
-        if take > 0:
-            lease.gpu_ids = self._free_gpu_ids[:take]
-            del self._free_gpu_ids[:take]
+        n_gpu = demand.to_dict().get(GPU_RESOURCE, 0)
+        if n_gpu > 0:
+            lease.gpu_shares = self._gpu_shares.take(n_gpu)
+            lease.gpu_ids = list(lease.gpu_shares)
         worker.lease_id = lease_id
         self._leases[lease_id] = lease
         if conn is not None and conn.writer.is_closing():
@@ -2254,7 +2308,7 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         lease = self._leases.pop(lease_id, None)
         if lease is None:
             return {"ok": False}
-        self._free_gpu_ids.extend(lease.gpu_ids)
+        self._gpu_shares.give_back(lease.gpu_shares)
         w = lease.worker
         w.lease_id = None
         if kill_worker or w.proc.poll() is not None:

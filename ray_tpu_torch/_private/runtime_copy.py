@@ -36,7 +36,6 @@ COPIED: List[str] = [
     "_private/rpc.py",
     "_native/copyfast.c",
     "_private/object_store.py",
-    "_private/memory_store.py",
     "_private/object_ref.py",
     "_private/reference_count.py",
     "_private/object_directory.py",
@@ -52,6 +51,11 @@ COPIED: List[str] = [
     "_private/memory_monitor.py",
     "_private/log_monitor.py",
     "util/scheduling_strategies.py",
+    "experimental/__init__.py",
+    "experimental/internal_kv.py",
+    "serve/api.py",
+    "serve/rpc_ingress.py",
+    "serve/http.py",
 ]
 
 PORTED: Dict[str, str] = {
@@ -66,11 +70,19 @@ PORTED: Dict[str, str] = {
     "_private/worker_main.py":
         "no JAX site hook",
     "_private/node_agent.py":
-        "assigns GPU indices (gpu_ids) behind the fungible GPU count",
+        "assigns GPU indices (gpu_ids) behind the fungible GPU count; a "
+        "fractional demand takes a share of one card",
     "_private/head.py":
         "forwards a lease's gpu_ids with an actor's creation push",
     "_private/worker.py":
-        "CUDA_VISIBLE_DEVICES per lease; later slices named on import",
+        "CUDA_VISIBLE_DEVICES per lease; the LLM loop goes to the port's "
+        "engine; later slices named on import",
+    "serve/__init__.py":
+        "the LLM names load on first use: the controller and the proxy "
+        "never import torch",
+    "_private/memory_store.py":
+        "an evict reached from a GC inside the store's own lock is "
+        "deferred, not deadlocked",
     "api.py":
         "num_tpus= goes; num_gpus= maps to the GPU resource",
     "train/session.py":
@@ -79,15 +91,20 @@ PORTED: Dict[str, str] = {
 
 _MODULE_PATH = re.compile(r"\bray_tpu(?=\.[A-Za-z_])")
 _IMPORT = re.compile(r"\b(import|from) ray_tpu\b")
+# the imported module passed on as an argument or bound as a parameter
+# (serve/api.py's ``_reconcile_one(self, ray_tpu, ...)``)
+_ARGUMENT = re.compile(r"\bray_tpu(?=, )")
 
 
 def rename(text: str) -> str:
-    """ray_tpu's module paths become the port's: ``ray_tpu.x`` and
-    ``import/from ray_tpu`` name ``ray_tpu_torch``.  Everything else
-    keeps its text, metric names such as ``ray_tpu_actor_restarts_total``
+    """ray_tpu's module paths become the port's: ``ray_tpu.x``,
+    ``import/from ray_tpu`` and the module passed as an argument
+    (``f(ray_tpu, ...)``) name ``ray_tpu_torch``.  Everything else keeps
+    its text, metric names such as ``ray_tpu_actor_restarts_total``
     among it."""
-    return _IMPORT.sub(r"\1 ray_tpu_torch", _MODULE_PATH.sub("ray_tpu_torch",
-                                                              text))
+    text = _MODULE_PATH.sub("ray_tpu_torch", text)
+    return _ARGUMENT.sub("ray_tpu_torch",
+                         _IMPORT.sub(r"\1 ray_tpu_torch", text))
 
 
 def main() -> None:

@@ -122,14 +122,18 @@ FLASH_PREFILL_MIN_SEQ = 512
 def default_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True) -> torch.Tensor:
     """Dense attention, or the flash kernel for long causal
-    self-attention (>= FLASH_PREFILL_MIN_SEQ, multiple of 128).
+    self-attention (>= FLASH_PREFILL_MIN_SEQ, multiple of 128) at a shape
+    the kernel takes (``flash_attention.kernel_takes``; on a CPU tensor
+    the kernel's plain version takes every shape).
     q: [B,S,H,D], k/v: [B,S,Hkv,D]."""
     s, t = q.shape[1], k.shape[1]
     if (causal and s == t and s >= FLASH_PREFILL_MIN_SEQ
             and s % 128 == 0):
         from ray_tpu_torch.ops import flash_attention as fa
 
-        return fa.flash_attention(q, k, v, True)
+        if q.device.type == "cpu" or fa.kernel_takes(
+                q.shape[-1], s, t, q.dtype):
+            return fa.flash_attention(q, k, v, True)
     return dense_attention(q, k, v, causal)
 
 

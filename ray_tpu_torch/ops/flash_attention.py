@@ -51,6 +51,17 @@ def load_kernel():
     return _build.function(_SOURCE, "rt_flash_attention", _ARGTYPES)
 
 
+def kernel_takes(head_dim: int, seq_len: int, kv_len: int,
+                 dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernel takes this shape: head_dim in
+    :data:`HEAD_DIMS`, S and T multiples of :data:`TILE`, bfloat16 or
+    float32 (any GQA group).  Callers route on it before launching; the
+    wrapper itself raises outside it."""
+    return (head_dim in HEAD_DIMS and seq_len % TILE == 0
+            and kv_len % TILE == 0
+            and dtype in (torch.bfloat16, torch.float32))
+
+
 def _probs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
     """fp32 softmax(q k^T / sqrt(D)) as [B, Hkv, G, S, T]."""
     b, s, h, d = q.shape
@@ -97,16 +108,14 @@ def _check(q, k, v):
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} "
                          f"do not pair up")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    if s % TILE or t % TILE:
-        raise ValueError(f"flash kernel needs S ({s}) and T ({t}) to be "
-                         f"multiples of {TILE}")
     if q.dtype not in (torch.bfloat16, torch.float32) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of bfloat16/float32, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if not kernel_takes(d, s, t, q.dtype):
+        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS} and "
+                         f"S, T multiples of {TILE}, got head_dim {d}, "
+                         f"S {s}, T {t}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")

@@ -53,6 +53,15 @@ def load_kernel():
     return _build.function(_SOURCE, "rt_paged_attention", _ARGTYPES)
 
 
+def kernel_takes(head_dim: int, group: int, dtype: torch.dtype) -> bool:
+    """Whether the CUDA kernels take this shape: head_dim in
+    :data:`HEAD_DIMS`, up to :data:`MAX_GROUP` query heads per kv head,
+    bfloat16 or float32 (any page size).  The engine routes decode on
+    it before any launch; the wrapper itself raises outside it."""
+    return (head_dim in HEAD_DIMS and 1 <= group <= MAX_GROUP
+            and dtype in (torch.bfloat16, torch.float32))
+
+
 def paged_attention_ref(q: torch.Tensor, pool_k: torch.Tensor,
                         pool_v: torch.Tensor, block_tables: torch.Tensor,
                         context_lens: torch.Tensor, *,
@@ -171,12 +180,10 @@ def _check(q, pool_k, pool_v, block_tables, context_lens, page_size):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"paged kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"paged kernel takes up to {MAX_GROUP} query "
-                         f"heads per kv head, got {h // hkv}")
+    if not kernel_takes(d, h // hkv, q.dtype):
+        raise ValueError(f"paged kernel takes head_dim in {HEAD_DIMS} and "
+                         f"up to {MAX_GROUP} query heads per kv head, got "
+                         f"head_dim {d}, {h // hkv} per kv head")
     if pool_k.data_ptr() % 16 or pool_v.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (the kernel copies "
                          "16-byte vectors)")

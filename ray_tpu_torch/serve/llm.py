@@ -1,9 +1,12 @@
 """LLM serving tier: continuous batching over a paged KV cache.
 
-The port of ray_tpu/serve/llm.py's :class:`LLMEngine`.  Admission,
-paging, the copy-on-write prefix index, deadlines, disaggregated-prefill
-export/import, save/restore and the stepping loop are the same; only the
-framework seams differ:
+The port of ray_tpu/serve/llm.py: :class:`LLMEngine` and the replica
+side of ``llm_deployment``.  Admission, paging, the copy-on-write prefix
+index, deadlines, disaggregated-prefill export/import, save/restore, the
+stepping loop, the ``llm_metrics`` families it records, the replica
+targets (``_LLMCallable``, ``_LLMBatchCallable``) and the pinned decode
+loop (``run_llm_loop``, installed through ``__rt_dag_llm_loop__``) are
+the same; only the framework seams differ:
 
   - one eager :meth:`LLMEngine._forward` over device tensors replaces the
     jitted stepper.  Greedy decoding is ``argmax``; sampling is
@@ -13,7 +16,11 @@ framework seams differ:
     engine donated them to jit;
   - paged decode runs the paged-attention CUDA kernel
     (ops/paged_attention.py) over block tables whose width snaps to the
-    same power-of-four buckets.
+    same power-of-four buckets; ``auto`` picks it only where the kernel
+    takes the model's shape (:func:`resolve_attention_impl`);
+  - a disaggregated KV pack carries the host tensors of
+    ``gather_kv_slots``; the decode replica's ``scatter_kv_slots`` moves
+    them onto its own device.
 
 Request contract (token-level; tokenization is the client's concern):
   {"tokens": [int, ...],        # prompt token ids
@@ -64,11 +71,34 @@ from ray_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
                                         copy_kv_slots, gather_kv_slots,
                                         make_kv_pools, scatter_kv_slots)
 
-__all__ = ["LLMEngine", "LLMOverloadedError"]
+__all__ = ["LLMEngine", "LLMOverloadedError", "llm_deployment",
+           "run_llm_loop"]
 
 
 class LLMOverloadedError(RuntimeError):
     """Admission shed: queue full or the prompt cannot be paged in."""
+
+
+def resolve_attention_impl(impl: str, cfg: LlamaConfig,
+                           device: torch.device) -> str:
+    """The decode attention an engine runs: ``paged`` or ``dense``.
+    ``auto`` is ``paged`` where the paged kernel takes the model's shape
+    (``paged_attention.kernel_takes``: head_dim, query heads per kv
+    head, dtype) or the engine runs on the CPU, whose plain version
+    takes every shape; elsewhere ``dense``.  An explicit ``paged`` is
+    kept, and raises at the first decode step if the kernel does not
+    take the shape."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    impl = str(impl).lower()
+    if impl == "auto":
+        takes = device.type == "cpu" or pa.kernel_takes(
+            cfg.head_dim, cfg.n_heads // cfg.n_kv_heads, cfg.dtype)
+        impl = "paged" if takes else "dense"
+    if impl not in ("paged", "dense"):
+        raise ValueError(
+            f"llm_attention_impl must be auto|paged|dense, got {impl!r}")
+    return impl
 
 
 # sequence states
@@ -211,12 +241,8 @@ class LLMEngine:
         # through the paged-attention kernel (block tables + context
         # lengths, cost tracks used context); "dense" keeps the
         # gather-then-dense reference (cost tracks max context).
-        impl = str(attention_impl or config.llm_attention_impl).lower()
-        if impl == "auto":
-            impl = "paged"
-        if impl not in ("paged", "dense"):
-            raise ValueError(
-                f"llm_attention_impl must be auto|paged|dense, got {impl!r}")
+        impl = resolve_attention_impl(
+            attention_impl or config.llm_attention_impl, cfg, self.device)
         self.attention_impl = impl
         self._model = LlamaModel(
             cfg, page_size=self.page_size if impl == "paged" else 0,
@@ -276,6 +302,7 @@ class LLMEngine:
         self._cancelled_total = 0
         self._last_batch = 0
         self._last_step_tokens = 0
+        self._metrics = None
         # decode-step accumulators (mean step cost is a delta between
         # two stats() snapshots)
         self._decode_steps = 0
@@ -697,6 +724,10 @@ class LLMEngine:
                 seq.pos = shared_tok
                 self._prefix_hits += 1
                 self._prefix_tokens_shared += shared_tok
+                m = self.metrics()
+                if m is not None:
+                    m["prefix_hits"].inc(
+                        tags={"kind": "cow" if cow else "page"})
             seq.state = _PREFILL
             self._active.append(seq)
 
@@ -709,6 +740,9 @@ class LLMEngine:
         n = len(seq.generated)
         if seq.first_token_at is None:
             seq.first_token_at = time.monotonic()
+            m = self.metrics()
+            if m is not None:
+                m["ttft"].observe(seq.first_token_at - seq.submitted_at)
         if (seq.eos is not None and int(token) == seq.eos) \
                 or n >= seq.max_new:
             self._finish_seq(seq)
@@ -737,7 +771,11 @@ class LLMEngine:
             first_tok = int(pack["meta"]["first_token"])
             scatter_kv_slots(self._pools, seq.slot_cache[:n], pack["rows"])
             seq.pos = n
-            self._kv_pages_shipped_in += -(-n // self.page_size)
+            n_pages = -(-n // self.page_size)
+            self._kv_pages_shipped_in += n_pages
+            m = self.metrics()
+            if m is not None:
+                m["shipped"].inc(n_pages, tags={"direction": "in"})
             # imported pages carry a complete prompt prefix: register
             # them so later same-prefix admissions share them
             self._register_prefix_pages(seq)
@@ -752,6 +790,9 @@ class LLMEngine:
         copy)."""
         if seq.first_token_at is None:
             seq.first_token_at = time.monotonic()
+            m = self.metrics()
+            if m is not None:
+                m["ttft"].observe(seq.first_token_at - seq.submitted_at)
         seq.generated.append(int(first_token))
         n = seq.pos
         n_pages = -(-n // self.page_size)
@@ -764,6 +805,9 @@ class LLMEngine:
             "rows": gather_kv_slots(self._pools, seq.slot_cache[:n]),
         }
         self._kv_pages_shipped_out += n_pages
+        m = self.metrics()
+        if m is not None:
+            m["shipped"].inc(n_pages, tags={"direction": "out"})
         seq.state = _SHIP
         self._finish_seq(seq)
 
@@ -812,6 +856,8 @@ class LLMEngine:
             if not prefills and not decode:
                 self._last_batch = 0
                 self._last_step_tokens = 0
+                self._set_gauges()  # idle publishes zeros, not the last
+                # busy step's values
                 return imported  # an import that finished immediately
                 # (max_new=1 / eos) still counts as work done
             prefill_args = []
@@ -858,7 +904,8 @@ class LLMEngine:
             next_tok = self._forward(
                 tokens, slot_arr, ctx, ctx_pos, ctx_mask, q_pos,
                 last_idx).cpu().numpy()
-            step_tokens += sum(hi - lo for _s, lo, hi, *_r in prefill_args)
+            chunk_tokens = sum(hi - lo for _s, lo, hi, *_r in prefill_args)
+            step_tokens += chunk_tokens
             with self._lock:
                 for lane, (seq, lo, hi, *_rest) in enumerate(prefill_args):
                     if seq.done:
@@ -873,6 +920,9 @@ class LLMEngine:
                         else:
                             seq.state = _DECODE
                             self._emit_token(seq, int(next_tok[lane]))
+            m = self.metrics()
+            if m is not None:
+                m["tokens"].inc(chunk_tokens, tags={"phase": "prefill"})
         # ---- token-level decode batch
         if decode_args:
             b = self.max_batch
@@ -928,6 +978,10 @@ class LLMEngine:
                     seq.pos += 1
                     self._emit_token(seq, int(next_tok[lane]))
             step_tokens += len(decode_args)
+            m = self.metrics()
+            if m is not None:
+                m["tokens"].inc(len(decode_args), tags={"phase": "decode"})
+                m["decode_step"].observe(decode_dt)
         self._steps += 1
         self._last_batch = len(decode_args)
         self._last_step_tokens = step_tokens
@@ -943,6 +997,7 @@ class LLMEngine:
         else:
             self._step_ewma = 0.9 * self._step_ewma \
                 + 0.1 * min(dt, 5.0 * self._step_ewma)
+        self._set_gauges()
         return True
 
     def run_loop(self) -> Dict[str, Any]:
@@ -1006,9 +1061,42 @@ class LLMEngine:
 
     # ------------------------------------------------------- observability
 
+    def metrics(self):
+        """This process's ``llm_metrics()`` and ``llm_prefix_metrics()``
+        families (_private/metrics.py), or None if they cannot load."""
+        if self._metrics is None:
+            try:
+                from ray_tpu_torch._private.metrics import (
+                    llm_metrics, llm_prefix_metrics)
+
+                (tokens, pages, batch, ttft, queue, tps,
+                 decode_step) = llm_metrics()
+                prefix_hits, shipped = llm_prefix_metrics()
+                self._metrics = {"tokens": tokens, "pages": pages,
+                                 "batch": batch, "ttft": ttft,
+                                 "queue": queue, "tps": tps,
+                                 "decode_step": decode_step,
+                                 "prefix_hits": prefix_hits,
+                                 "shipped": shipped}
+            except Exception:
+                return None
+        return self._metrics
+
     def _shared_page_count(self) -> int:
         """Lock held: pages referenced by more than one sequence."""
         return sum(1 for r in self._page_refs if r > 1)
+
+    def _set_gauges(self) -> None:
+        m = self.metrics()
+        if m is None:
+            return
+        m["pages"].set(self.num_pages - 1 - len(self._free_pages),
+                       tags={"state": "used"})
+        m["pages"].set(len(self._free_pages), tags={"state": "free"})
+        m["pages"].set(self._shared_page_count(), tags={"state": "shared"})
+        m["batch"].set(self._last_batch)
+        m["queue"].set(len(self._queued))
+        m["tps"].set(self._last_step_tokens)
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:
@@ -1073,3 +1161,175 @@ class LLMEngine:
                 self._by_rid[rid] = seq
                 self._queued.append(seq)
             self._cond.notify_all()
+
+
+# ----------------------------------------------------------- replica target
+
+
+class _LLMCallable:
+    """The deployment target hosted by each ``llm_deployment`` replica.
+
+    ``__call__`` is the streaming endpoint: it admits the request and
+    yields token items as the pinned loop (installed by the controller
+    through ``__rt_dag_llm_loop__``) produces them.  The generator's
+    finally detaches the consumer, so an abandoned stream (SSE
+    disconnect -> generator cancel) frees its KV pages after the grace
+    window instead of decoding to max_seq_len."""
+
+    def __init__(self, warm: bool = True, **engine_kwargs):
+        self._engine = LLMEngine(**engine_kwargs)
+        if warm:
+            # run both step shapes (a prefill chunk, a decode step) HERE,
+            # inside the replica constructor: the deploy health gate
+            # (serve_replica_health_timeout_s) covers the kernel build
+            # and cuBLAS's first calls, which the first real request
+            # would otherwise pay while health probes run
+            self._engine.generate_batch(
+                [{"tokens": [1], "max_new_tokens": 2}])
+
+    def __call__(self, request):
+        emit_from = 0
+        kv_pack = None
+        if isinstance(request, dict):
+            emit_from = int(request.get("emit_from") or 0)
+            if request.get("kv_ref") is not None:
+                # disaggregated prefill: resolve the shipped KV pages.
+                # ANY failure (pull error, pack corruption) falls back to
+                # a local prefill: always correct, just slower.
+                request = dict(request)
+                ref = request.pop("kv_ref")
+                try:
+                    import ray_tpu_torch
+                    from ray_tpu_torch._private.object_transfer import \
+                        unpack_kv_pages
+
+                    kv_pack = unpack_kv_pages(
+                        ray_tpu_torch.get(ref, timeout=30.0))
+                except Exception:
+                    kv_pack = None
+        seq = self._engine.submit(request, kv_pack=kv_pack)
+        try:
+            yield from self._engine.iter_tokens(seq, emit_from)
+        finally:
+            self._engine.release(seq)
+
+    def prefill(self, request):
+        """Prefill-pool endpoint: run the prefill phase only, put the
+        packed KV pages (host tensors) into the object store, and return
+        the shipping metadata the handle forwards to a decode replica."""
+        import ray_tpu_torch
+        from ray_tpu_torch._private.object_transfer import pack_kv_pages
+
+        payload = self._engine.prefill_request(request)
+        buf = pack_kv_pages(payload["meta"], payload["rows"])
+        meta = payload["meta"]
+        return {"request_id": meta["request_id"],
+                "kv_ref": ray_tpu_torch.put(buf),
+                "first_token": meta["first_token"],
+                "n": meta["n"], "pages": meta["pages"],
+                "nbytes": len(buf)}
+
+    def generate(self, request):
+        """Non-streaming convenience: the full generation as one list
+        (still continuous-batched with everything else in flight)."""
+        toks: List[int] = []
+        for item in self(request):
+            toks.extend(item["tokens"])
+        return {"request_id": None, "tokens": toks}
+
+    def stats(self):
+        return self._engine.stats()
+
+    def __rt_save__(self):
+        return self._engine.save_state()
+
+    def __rt_restore__(self, state):
+        self._engine.restore_state(state)
+
+
+class _LLMBatchCallable:
+    """The ``@serve.batch`` static-batching baseline: requests coalesce
+    into a fixed batch, the whole batch generates to completion in one
+    call, then disbands.  ``__call__`` serves the same streaming
+    contract as the continuous path (items of <= stream_flush_tokens
+    tokens), but can only start emitting once the whole batch finished."""
+
+    def __init__(self, max_batch_size: int = 8,
+                 batch_wait_timeout_s: float = 0.005, warm: bool = True,
+                 **engine_kwargs):
+        from ray_tpu_torch.serve.api import batch
+
+        self._engine = LLMEngine(**engine_kwargs)
+        if warm:
+            self._engine.generate_batch(
+                [{"tokens": [1], "max_new_tokens": 2}])
+        self._gen = batch(self._run_batch,
+                          max_batch_size=max_batch_size,
+                          batch_wait_timeout_s=batch_wait_timeout_s)
+
+    def _run_batch(self, requests):
+        return self._engine.generate_batch(requests)
+
+    def __call__(self, request):
+        toks = self._gen(request)  # blocks until this request's batch ends
+        flush = self._engine.stream_flush_tokens
+        for i in range(0, len(toks), flush):
+            yield {"i": i, "tokens": toks[i:i + flush],
+                   "done": i + flush >= len(toks)}
+
+
+def run_llm_loop(worker, instance, *_args) -> Dict[str, Any]:
+    """Worker-side entry for the ``__rt_dag_llm_loop__`` system method
+    (_private/worker.py): pins this exec thread to the replica engine's
+    decode loop until the replica dies."""
+    target = getattr(instance, "_callable", instance)
+    engine = getattr(target, "_engine", None)
+    if not isinstance(engine, LLMEngine):
+        raise TypeError(
+            "__rt_dag_llm_loop__ requires an llm_deployment replica "
+            f"(got {type(target).__name__})")
+    return engine.run_loop()
+
+
+def llm_deployment(name: str = "llm", *, num_replicas: Any = 1,
+                   max_ongoing_requests: int = 64,
+                   ray_actor_options: Optional[Dict[str, Any]] = None,
+                   autoscaling_config: Optional[Dict[str, Any]] = None,
+                   request_timeout_s: Optional[float] = None,
+                   hedge_after_s: Any = None, idempotent: bool = False,
+                   prefill_replicas: int = 0,
+                   **engine_kwargs):
+    """Build an LLM serving Application: replicas host an
+    :class:`LLMEngine` and the controller installs the pinned decode
+    loop on each one.  ``engine_kwargs`` go to :class:`LLMEngine`
+    (model=, params=, page_size=, num_pages=, max_batch=, prefill_chunk=,
+    max_queue=, seed=, detach_grace_s=, prefix_sharing=, dtype=,
+    device=); unset knobs fall back to the ``llm_*`` config defaults,
+    and the device to ``cuda``: a replica that cannot see a card raises
+    in its constructor unless given ``device="cpu"``.
+
+    ``prefill_replicas > 0`` disaggregates the two serving phases: a
+    sibling ``{name}-prefill`` pool (same engine config and actor
+    options) runs chunked prefill and ships the finished KV pages to
+    this deployment's decode replicas through the object store.
+    ``ray_actor_options={"num_gpus": 0.5}`` puts a prefill and a decode
+    replica on one card.
+
+    Usage::
+
+        app = serve.llm_deployment("chat", model="tiny", max_batch=16,
+                                   ray_actor_options={"num_gpus": 1})
+        handle = serve.run(app)
+        # stream over HTTP: POST /chat with Accept: text/event-stream
+    """
+    from ray_tpu_torch.serve.api import Deployment
+
+    d = Deployment(_LLMCallable, name, num_replicas=num_replicas,
+                   max_ongoing_requests=max_ongoing_requests,
+                   ray_actor_options=dict(ray_actor_options or {}),
+                   autoscaling_config=dict(autoscaling_config)
+                   if autoscaling_config else None,
+                   llm=True, request_timeout_s=request_timeout_s,
+                   hedge_after_s=hedge_after_s, idempotent=idempotent,
+                   prefill_replicas=int(prefill_replicas))
+    return d.bind(**engine_kwargs)

@@ -195,6 +195,38 @@ def test_engine_paged_and_dense_agree_on_gpu(cuda):
     assert dense.generate_batch([dict(r) for r in reqs]) == out
 
 
+@pytest.mark.parametrize("head_dim", [32, 16])
+def test_engine_at_a_head_dim_the_kernel_refuses_serves_dense(cuda,
+                                                              head_dim):
+    """``auto`` resolves to dense decode where the paged kernel does not
+    take the shape (head_dim 32 or 16), and the engine serves the same
+    greedy tokens as an explicitly dense one, launching no kernel; an
+    explicit ``paged`` engine at that shape still raises at its first
+    decode step."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = LlamaConfig(vocab_size=64, dim=4 * head_dim, n_layers=2,
+                      n_heads=4, n_kv_heads=2, hidden_dim=128,
+                      max_seq_len=64, dtype=torch.float32)
+    kw = dict(device=cuda, page_size=8, num_pages=33, max_batch=4,
+              prefill_chunk=8)
+    reqs = [{"tokens": [5, 9, 3], "max_new_tokens": 6},
+            {"tokens": list(range(1, 21)), "max_new_tokens": 6}]
+    auto = LLMEngine(cfg, **kw)
+    assert auto.stats()["attention_impl"] == "dense"
+    before = pa.LAUNCHES
+    out = auto.generate_batch([dict(r) for r in reqs])
+    assert pa.LAUNCHES == before
+    assert all(len(o) == 6 for o in out)
+    dense = LLMEngine(cfg, params=auto._model.state_dict(),
+                      attention_impl="dense", **kw)
+    assert dense.generate_batch([dict(r) for r in reqs]) == out
+    paged = LLMEngine(cfg, params=auto._model.state_dict(),
+                      attention_impl="paged", **kw)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged.generate_batch([dict(reqs[0])])
+
+
 def test_train_step_on_gpu_loss_falls(cuda):
     """A tiny bf16 train step with fp32 master weights on the card: the
     loss of one batch falls, and with remat each step launches the flash

@@ -230,6 +230,64 @@ def test_attention_impl_validation():
         _port(attention_impl="flashier")
 
 
+# ------------------------------------------- routing on the kernels' shapes
+
+
+@pytest.mark.parametrize("name,flash,paged", [("tiny", False, False),
+                                              ("small", True, True),
+                                              ("llama3_8b", True, True)])
+def test_kernel_predicates_and_auto_resolution(name, flash, paged):
+    """Each kernel module states the shapes its CUDA kernel takes; the
+    engine's ``auto`` resolves to ``paged`` on a CUDA device only where
+    the paged kernel takes the model's shape (tiny: head_dim 16), on
+    the CPU always (the plain version takes every shape), and an
+    explicit choice is kept."""
+    from ray_tpu_torch.ops import flash_attention as tfa
+    from ray_tpu_torch.serve.llm import resolve_attention_impl
+
+    cfg = getattr(LlamaConfig, name)()
+    group = cfg.n_heads // cfg.n_kv_heads
+    assert tfa.kernel_takes(cfg.head_dim, 512, 512, cfg.dtype) is flash
+    assert tpa.kernel_takes(cfg.head_dim, group, cfg.dtype) is paged
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert resolve_attention_impl("auto", cfg, cuda) == \
+        ("paged" if paged else "dense")
+    assert resolve_attention_impl("auto", cfg, cpu) == "paged"
+    assert resolve_attention_impl("paged", cfg, cuda) == "paged"
+    assert resolve_attention_impl("dense", cfg, cuda) == "dense"
+
+
+def test_kernel_predicates_refuse_what_the_kernels_refuse():
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    assert not tpa.kernel_takes(80, 4, torch.bfloat16)     # head_dim
+    assert not tpa.kernel_takes(128, 16, torch.bfloat16)   # group > 8
+    assert not tpa.kernel_takes(128, 4, torch.float16)     # dtype
+    assert tpa.kernel_takes(64, 8, torch.float32)
+    assert not tfa.kernel_takes(128, 520, 520, torch.bfloat16)  # tile
+    assert not tfa.kernel_takes(32, 512, 512, torch.bfloat16)
+    assert tfa.kernel_takes(64, 512, 512, torch.float32)
+
+
+def test_default_attention_takes_flash_only_where_the_kernel_takes_it(
+        monkeypatch):
+    """On a device that is not the CPU (``meta`` here: shapes only, no
+    card), a long causal prefill goes to flash at head_dim 64/128 and to
+    dense attention at 16 or 80, decided before any launch."""
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import flash_attention as tfa
+
+    calls = []
+    monkeypatch.setattr(tfa, "flash_attention",
+                        lambda q, k, v, causal: calls.append(q.shape[-1])
+                        or torch.empty_like(q))
+    for d in (16, 64, 80, 128):
+        q = torch.empty(1, 512, 4, d, device="meta")
+        kv = torch.empty(1, 512, 2, d, device="meta")
+        assert tl.default_attention(q, kv, kv, True).shape == q.shape
+    assert calls == [64, 128]
+
+
 def test_state_dict_params_and_seeded_init():
     """params may be the port's own state_dict; params=None initializes
     from the seed (same seed, same weights)."""

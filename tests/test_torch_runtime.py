@@ -61,28 +61,79 @@ def test_rename_touches_module_paths_only():
            "from ray_tpu._private.rpc import RpcHost\n"
            "cmd = fast_python_cmd('ray_tpu._private.head')\n"
            "m = Counter('ray_tpu_actor_restarts_total')\n"
-           "print('ray_tpu head listening')\n")
+           "print('ray_tpu head listening')\n"
+           "self._reconcile_one(ray_tpu, name, app)\n")
     assert runtime_copy.rename(src) == (
         "import ray_tpu_torch\nfrom ray_tpu_torch import _native\n"
         "from ray_tpu_torch._private.rpc import RpcHost\n"
         "cmd = fast_python_cmd('ray_tpu_torch._private.head')\n"
         "m = Counter('ray_tpu_actor_restarts_total')\n"
-        "print('ray_tpu head listening')\n")
+        "print('ray_tpu head listening')\n"
+        "self._reconcile_one(ray_tpu_torch, name, app)\n")
 
 
 @pytest.mark.parametrize("name", sorted(LATER))
 def test_a_later_slice_raises_naming_its_slice(name):
-    from ray_tpu_torch._private import later_slices
-
-    module = name if name != "ray_tpu_torch.serve.llm.run_llm_loop" \
-        else None
-    if module is None:
-        err = later_slices.unported(name)
-    else:
-        with pytest.raises(ImportError) as ei:
-            __import__(module)
-        err = ei.value
+    with pytest.raises(ImportError) as ei:
+        __import__(name)
+    err = ei.value
     assert "is not ported yet" in str(err) and LATER[name] in str(err)
+
+
+# ------------------------------------------------- the memory store's lock
+
+
+def test_evict_from_a_collection_inside_the_store_lock_finishes(
+        monkeypatch):
+    """A garbage collection that starts while ``_entry`` holds the store's
+    lock (its allocation of a new entry) frees the last reference to an
+    owned object, whose ``__del__`` evicts it from the same store on the
+    same thread, as ObjectRef.__del__ -> _free_object does.  The evict
+    must not wait on the lock its own thread holds: the call finishes,
+    and the evicted entry is gone afterwards."""
+    import gc
+    import threading
+
+    from ray_tpu_torch._private import memory_store
+
+    store = memory_store.MemoryStore()
+    store.set_value("owned", 1)
+
+    class Ref:                      # stands in for the last ObjectRef
+        def __del__(self):
+            store.evict("owned")
+
+    held = [Ref()]
+    inside, fired = [], []
+
+    def drop_last_ref(phase, _info):
+        if phase == "start" and held and inside:
+            fired.append(True)
+            held.pop()              # refcount 0: __del__ runs right here
+
+    class CollectingEntry(memory_store._Entry):
+        __slots__ = ()
+
+        def __init__(self):
+            inside.append(True)     # _entry holds the lock around this
+            gc.collect()            # a collection inside the allocation
+            inside.clear()
+            super().__init__()
+
+    monkeypatch.setattr(memory_store, "_Entry", CollectingEntry)
+    gc.callbacks.append(drop_last_ref)
+    try:
+        worker = threading.Thread(target=store.ensure, args=("new",),
+                                  daemon=True)
+        worker.start()
+        worker.join(timeout=10)     # a regression fails here, not hangs
+    finally:
+        gc.callbacks.remove(drop_last_ref)
+    assert fired, "the collection never ran inside the lock"
+    assert not worker.is_alive(), "evict deadlocked on the store's lock"
+    assert not store.known("owned") and store.known("new")
+    store.evict("new")              # the lock was left free
+    assert not store.known("new")
 
 
 # ------------------------------------------------------------ the cluster
