@@ -30,7 +30,16 @@ bit, two GPU tasks on disjoint cards of a cluster that claims two; the
 train phase's configuration through ``TorchTrainer`` in a GPU-pinned
 actor, whose six losses must match the train phase's; and a worker
 killed mid-run whose resumed losses must equal an uninterrupted run's
-bit for bit.  Then serving through that runtime, behind the HTTP proxy:
+bit for bit.  On that cluster, the MPMD pipeline: the train phase's
+model, init and batch through ``TrainPipeline(pp=2)`` (stages of 11 and
+9 layers, 4 microbatches of 2, each stage at ``num_gpus=0.5`` on the one
+card), whose first loss must be the train phase's and whose stage
+processes count their own flash launches; 2 layers in fp32 through the
+pipeline against the single-program step; and a channel-compiled chain
+of two half-card actors that must carry a 64 MiB bf16 CUDA tensor bit
+for bit.  Before them, one PPO learner update on the card over a
+CartPole-shaped rollout against the same update on the CPU.  Then
+serving through that runtime, behind the HTTP proxy:
 the serve phase's engine and prompts in a ``num_gpus=1`` replica, as
 concurrent SSE streams (client TTFT, the replica's decode step, its
 paged launches counted inside it); 2 layers in fp32 through a replica,
@@ -291,7 +300,8 @@ def phase_kernel_flash(gen) -> dict:
     rows = {}
     cases = [("8b_prefill", 2, 2048, 32, 8, 128),
              ("entry_small", 8, 512, 12, 4, 64),
-             ("train_1b", 8, 1024, 12, 4, 128)]
+             ("train_1b", 8, 1024, 12, 4, 128),
+             ("pipeline_microbatch", 2, 1024, 12, 4, 128)]
     for label, b, s, h, hkv, d in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, s, h, d), generator=gen,
@@ -1063,6 +1073,105 @@ def phase_ring_blocks(gen) -> None:
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- RL learner
+#
+# One PPOLearner update at PPOConfig's defaults (4 epochs of 256-row
+# minibatches, Adam at 3e-4, gradients clipped to norm 0.5) over a
+# CartPole-shaped rollout of 128 steps x 16 envs built from a seed
+# (so it needs no gymnasium): on the card, and the same update on
+# the CPU from the same weights with the same minibatch order.  Both
+# compute in fp32 (TF32 is off); they differ in the order of sums.
+# Adam's first steps move a weight by about lr * sign(g), so where a
+# gradient sits at rounding noise the two may step apart by up to
+# 2 * lr per step; the bound allows that on at most RL_DRIFT_SHARE of
+# the weights and holds the rest within RL_WEIGHT_ATOL, and the losses
+# within RL_STATS_REL (relative to at least 1e-3).  On the CPU, weights
+# moved by one rounding step (2e-7 relative) before the same update end
+# at most 3e-7 apart.
+
+RL_T, RL_E = 128, 16
+RL_WEIGHT_ATOL = 1e-5
+RL_DRIFT_SHARE = 1e-3
+RL_STATS_REL = 1e-4
+RL_UPDATES_TIMED = 5
+
+
+def _cartpole_rollout(seed: int) -> dict:
+    """A [T, E] rollout with CartPole's shapes and ranges: 4-dim
+    observations, 2 actions, a reward of 1 per live step, episodes that
+    end about every 20 steps, the step after an end masked out."""
+    rng = np.random.default_rng(seed)
+    T, E = RL_T, RL_E
+    done = rng.uniform(size=(T, E)) < 0.05
+    mask = np.ones((T, E), np.float32)
+    mask[1:][done[:-1]] = 0.0
+    return {
+        "obs": (rng.normal(size=(T, E, 4)) * [0.5, 0.8, 0.1, 0.8]
+                ).astype(np.float32),
+        "actions": rng.integers(0, 2, size=(T, E)).astype(np.int32),
+        "logp": np.log(rng.uniform(0.4, 0.6, size=(T, E))
+                       ).astype(np.float32),
+        "values": rng.normal(10.0, 3.0, size=(T, E)).astype(np.float32),
+        "rewards": mask.copy(),
+        "nonterminal": (~done).astype(np.float32),
+        "mask": mask,
+        "last_value": rng.normal(10.0, 3.0, size=(E,)).astype(np.float32),
+    }
+
+
+def phase_rl_learner() -> None:
+    """One PPO update on the card against the same update on the CPU,
+    then updates/s on the card."""
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import ActorCriticModule
+
+    batch = _cartpole_rollout(SEED + 8)
+    card = PPOLearner(ActorCriticModule(4, 2, seed=SEED, device="cpu"),
+                      seed=SEED)
+    host = PPOLearner(ActorCriticModule(4, 2, seed=SEED, device="cpu"),
+                      seed=SEED, device="cpu")
+    check(card.device.type == "cuda", f"rl_learner: on {card.device}")
+    init = host.get_weights()
+    t0 = time.perf_counter()
+    stats_card = card.update_from_batch(batch)
+    first_update_s = time.perf_counter() - t0
+    stats_host = host.update_from_batch(batch)
+    got, want = card.get_weights(), host.get_weights()
+    diff = {k: (got[k] - want[k]).abs() for k in want}
+    worst = max(float(d.max()) for d in diff.values())
+    n = sum(d.numel() for d in diff.values())
+    drift = sum(int((d > RL_WEIGHT_ATOL).sum()) for d in diff.values()) / n
+    steps = card.num_epochs * (RL_T * RL_E // card.minibatch_size)
+    moved = max(float((want[k] - init[k]).abs().max()) for k in want)
+    stats_rel = {k: abs(stats_card[k] - v) / max(abs(v), 1e-3)
+                 for k, v in stats_host.items()}
+    check(all(math.isfinite(v) for v in stats_card.values()),
+          f"rl_learner: stats {stats_card}")
+    check(moved > 1e-4, "rl_learner: the update did not move the weights")
+    check(drift <= RL_DRIFT_SHARE and worst <= 2 * 3e-4 * steps,
+          f"rl_learner: weights differ from the CPU's: {drift} of them "
+          f"beyond {RL_WEIGHT_ATOL}, at most {worst}")
+    check(max(stats_rel.values()) <= RL_STATS_REL,
+          f"rl_learner: stats {stats_card} vs cpu {stats_host}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RL_UPDATES_TIMED):
+        card.update_from_batch(batch)   # ends in a host read of its stats
+    card_s = (time.perf_counter() - t0) / RL_UPDATES_TIMED
+    t0 = time.perf_counter()
+    host.update_from_batch(batch)
+    host_s = time.perf_counter() - t0
+    emit("rl_learner", rollout=[RL_T, RL_E], obs_dim=4, num_actions=2,
+         hidden=[64, 64], minibatch_size=card.minibatch_size,
+         num_epochs=card.num_epochs, adam_steps_per_update=steps,
+         stats_card=stats_card, stats_cpu=stats_host, stats_rel=stats_rel,
+         stats_rel_bound=RL_STATS_REL, weight_diff_max=worst,
+         weight_share_beyond_atol=drift, weight_atol=RL_WEIGHT_ATOL,
+         weight_share_bound=RL_DRIFT_SHARE, first_update_s=first_update_s,
+         update_s=card_s, updates_per_s=1.0 / card_s,
+         host_cpu_update_s=host_s)
+
+
 # ------------------------------------------------------ the actor runtime
 #
 # The runtime's workers import this file as the module ``chip_smoke``
@@ -1074,9 +1183,9 @@ RUNTIME_PUT_ELEMS = 128 << 20     # bf16: 256 MiB
 RUNTIME_TIMEOUT_S = 300
 
 
-def _put_tensor(seed: int) -> torch.Tensor:
+def _put_tensor(seed: int, elems: int = RUNTIME_PUT_ELEMS) -> torch.Tensor:
     gen = torch.Generator("cuda").manual_seed(seed)
-    return torch.randn(RUNTIME_PUT_ELEMS, generator=gen, device="cuda",
+    return torch.randn(elems, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
 
 
@@ -1369,9 +1478,11 @@ def phase_trainer_resume(tmp: str) -> int:
 
 
 def phase_runtime_and_trainers(train: dict) -> int:
-    """The runtime, trainer and trainer_resume phases, with the
-    runtime's session directories in a temporary directory; returns the
-    flash launches the trainers' workers made."""
+    """The runtime phase, then on one cluster the trainer,
+    trainer_resume, pipeline, pipeline_identity and dag_channel phases,
+    with the runtime's session directories in a temporary directory;
+    returns the flash launches the trainers' workers and the pipeline
+    stages made."""
     import tempfile
 
     import ray_tpu_torch as rt
@@ -1383,9 +1494,237 @@ def phase_runtime_and_trainers(train: dict) -> int:
         try:
             launches = phase_trainer(train, tmp)
             launches += phase_trainer_resume(tmp)
+            check(PIPE_RING_BYTES + DAG_RING_BYTES < RUNTIME_STORE_BYTES // 2,
+                  "the object store cannot hold the pipeline's rings")
+            launches += phase_pipeline(train)
+            launches += phase_pipeline_identity()
+            phase_dag_channel()
         finally:
             rt.shutdown()
     return launches
+
+
+# ------------------------------------------------------- the MPMD pipeline
+#
+# TrainPipeline at the train phase's configuration: bench_1b at full
+# width and depth, bf16 over fp32 master weights, the train phase's
+# batch of 8 x 1024 tokens as 4 microbatches of 2, two stages of one
+# process each.  Each stage takes half of the one card (num_gpus=0.5),
+# or a card of its own where there are two.  The stages' init is the
+# train phase's seed-0 init (each weight is drawn from a generator of its
+# own, seeded by the seed and its name), so the first loss is the train
+# phase's first loss but for bf16 products over 2 rows instead of 8.
+
+PIPE_MICROBATCH, PIPE_MICROBATCHES = 2, 4
+PIPE_STEPS = 6
+PIPE_FIRST_LOSS_REL = 2e-3
+# fp32 at 2 layers: the pipeline's loss is the mean of 4 microbatch
+# means and its gradient their sum over 4; the single program sums over
+# the batch in one.  Only the order of fp32 sums differs.
+PIPE_IDENTITY_STEPS = 5
+PIPE_IDENTITY_LOSS_REL = 1e-4
+PIPE_TIMEOUT_S = 300
+# the rings: activations and their grads cross as [2, 1024, 1536] bf16
+# slots (6.3 MB), pp + 1 = 3 deep and 2 deep
+PIPE_RING_BYTES = (3 + 2) * PIPE_MICROBATCH * TRAIN_SHAPE[1] * 1536 * 2
+DAG_TENSOR_ELEMS = 32 << 20         # bf16: 64 MiB
+DAG_SLOT_BYTES = 2 * DAG_TENSOR_ELEMS + (1 << 20)
+DAG_RING_BYTES = 2 * 2 * DAG_SLOT_BYTES   # two edges, two slots each
+DAG_TRIPS = 5
+
+
+def _stage_gpus() -> float:
+    return 1.0 if torch.cuda.device_count() >= 2 else 0.5
+
+
+def _stage_flash_launches(pipe) -> list:
+    """Each stage process's own count of flash kernel launches."""
+    return [pipe._ctl(h, {"op": "info"}, timeout=60)["kernel_launches"]
+            ["flash_attention"] for h in pipe._handles]
+
+
+def _expected_stage_launches(cfg, ranges, steps: int) -> list:
+    """Flash launches per stage: a forward through each of its layers
+    per microbatch, and on a stage that is not the last the backward's
+    re-run of that forward (the dense-recompute backward launches no
+    flash kernel; no block remat)."""
+    return [(end - start) * PIPE_MICROBATCHES * steps
+            * (1 if s == len(ranges) - 1 else 2)
+            for s, (start, end) in enumerate(ranges)]
+
+
+def _run_pipeline(cfg, seed: int, tokens, steps: int) -> dict:
+    """Deploy a 2-stage TrainPipeline, take ``steps`` steps, read each
+    stage's flash launches (0 before the first step: the stage
+    processes are fresh) and tear it down."""
+    from ray_tpu_torch.train import TrainPipeline
+
+    num_gpus = _stage_gpus()
+    t0 = time.perf_counter()
+    pipe = TrainPipeline(cfg, pp=2, microbatch_size=PIPE_MICROBATCH,
+                         num_microbatches=PIPE_MICROBATCHES,
+                         seq_len=TRAIN_SHAPE[1], rng_seed=seed,
+                         num_gpus=num_gpus, step_timeout=PIPE_TIMEOUT_S,
+                         compile_timeout=PIPE_TIMEOUT_S)
+    deploy_s = time.perf_counter() - t0
+    try:
+        infos = [pipe._ctl(h, {"op": "info"}, timeout=60)
+                 for h in pipe._handles]
+        before = [i["kernel_launches"]["flash_attention"] for i in infos]
+        check(before == [0, 0], f"pipeline: stages start at {before}")
+        outs = [pipe.step(tokens) for _ in range(steps)]
+        launches = _stage_flash_launches(pipe)
+    finally:
+        pipe.teardown()
+    return {"outs": outs, "launches": launches, "deploy_s": deploy_s,
+            "num_gpus_per_stage": num_gpus, "ranges": pipe._ranges,
+            "stage_devices": [i["device"] for i in infos]}
+
+
+def phase_pipeline(train: dict) -> int:
+    """bench_1b through TrainPipeline(pp=2): 6 steps on the train
+    phase's batch and init; the first loss is the train phase's within
+    PIPE_FIRST_LOSS_REL, the losses fall, and each stage process
+    launched the flash kernel as its schedule says.  Returns the
+    stages' flash launches."""
+    cfg = LlamaConfig.bench_1b()
+    run = _run_pipeline(cfg, SEED, _train_tokens(cfg, SEED), PIPE_STEPS)
+    outs = run["outs"]
+    losses = [o["loss"] for o in outs]
+    want = _expected_stage_launches(cfg, run["ranges"], PIPE_STEPS)
+    first_rel = abs(losses[0] - train["losses"][0]) / abs(train["losses"][0])
+    check(run["ranges"] == [(0, 11), (11, 20)],
+          f"pipeline: partition {run['ranges']}")
+    check(all(math.isfinite(x) for x in losses), f"pipeline: {losses}")
+    check(first_rel <= PIPE_FIRST_LOSS_REL,
+          f"pipeline: first loss {losses[0]} vs train {train['losses'][0]}")
+    check(losses[-1] < losses[0], f"pipeline: loss did not fall: {losses}")
+    check(run["launches"] == want,
+          f"pipeline: stage flash launches {run['launches']} != {want}")
+    wall = [o["wall_s"] for o in outs]
+    per_stage = {
+        f"stage{s}": {k: [o["per_stage"][s][k] for o in outs]
+                      for k in ("fwd_s", "bwd_s", "opt_s", "busy_s")}
+        for s in range(2)}
+    emit("pipeline", config="bench_1b", n_layers=cfg.n_layers, remat=False,
+         compute_dtype="bfloat16", param_dtype="float32", pp=2,
+         ranges=run["ranges"], microbatch_size=PIPE_MICROBATCH,
+         num_microbatches=PIPE_MICROBATCHES, tokens=list(TRAIN_SHAPE),
+         num_gpus_per_stage=run["num_gpus_per_stage"],
+         cards=torch.cuda.device_count(), stage_devices=run["stage_devices"],
+         one_card_time_sliced=run["num_gpus_per_stage"] < 1,
+         deploy_s=run["deploy_s"], losses=losses,
+         train_loss_first=train["losses"][0], loss_first_rel=first_rel,
+         loss_first_rel_bound=PIPE_FIRST_LOSS_REL, step_wall_s=wall,
+         step_wall_s_median=statistics.median(wall[1:]),
+         train_step_s_median=train["step_s_median"],
+         tokens_per_s=[o["tokens_per_s"] for o in outs],
+         tokens_per_s_median=statistics.median(
+             o["tokens_per_s"] for o in outs[1:]),
+         bubble_pct=[o["bubble_pct"] for o in outs],
+         bubble_pct_median=statistics.median(
+             o["bubble_pct"] for o in outs[1:]),
+         per_stage=per_stage, stage_flash_launches=run["launches"],
+         flash_launches_counted_in="each stage process (ctl op info)")
+    return sum(run["launches"])
+
+
+def phase_pipeline_identity() -> int:
+    """bench_1b width cut to 2 layers, fp32: 5 steps of TrainPipeline
+    (pp=2, 4 microbatches of 2) against 5 single-program steps
+    (build_llama_train_state) from the same seed's init on the same
+    tokens; each loss within PIPE_IDENTITY_LOSS_REL.  Returns the
+    stages' flash launches."""
+    import dataclasses
+
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(), n_layers=2,
+                              dtype=torch.float32)
+    seed = SEED + 6
+    tokens = _train_tokens(cfg, seed)
+    _mesh, params, opt, step_fn = _train_state(cfg, seed)
+    want = [float(step_fn(params, opt, tokens)[2])
+            for _ in range(PIPE_IDENTITY_STEPS)]
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    run = _run_pipeline(cfg, seed, tokens, PIPE_IDENTITY_STEPS)
+    got = [o["loss"] for o in run["outs"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    expected = _expected_stage_launches(cfg, run["ranges"],
+                                        PIPE_IDENTITY_STEPS)
+    check(max(rel) <= PIPE_IDENTITY_LOSS_REL,
+          f"pipeline_identity: losses {got} vs single program {want}")
+    check(run["launches"] == expected,
+          f"pipeline_identity: flash launches {run['launches']}")
+    emit("pipeline_identity", config="bench_1b width, 2 layers, fp32",
+         pp=2, ranges=run["ranges"], microbatch_size=PIPE_MICROBATCH,
+         num_microbatches=PIPE_MICROBATCHES, tokens=list(TRAIN_SHAPE),
+         losses_pipeline=got, losses_single_program=want, loss_rel=rel,
+         loss_rel_bound=PIPE_IDENTITY_LOSS_REL,
+         stage_flash_launches=run["launches"], deploy_s=run["deploy_s"])
+    return sum(run["launches"])
+
+
+class ChannelHop:
+    """An actor of the dag_channel phase's compiled chain: ``hop``
+    passes its input on, ``check`` holds what reached it against the
+    seeded tensor rebuilt on its own card."""
+
+    def hop(self, x):
+        return x
+
+    def check(self, x) -> dict:
+        torch.cuda.synchronize()
+        want = _put_tensor(SEED + 7, DAG_TENSOR_ELEMS)
+        return {"device": str(x.device), "dtype": str(x.dtype),
+                "numel": x.numel(),
+                "current_device": torch.cuda.current_device(),
+                "cuda_visible_devices":
+                    os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "bit_identical": bool(torch.equal(
+                    x.view(torch.int16), want.view(torch.int16)))}
+
+
+def phase_dag_channel() -> None:
+    """A channel-compiled chain driver -> A -> B of two actors holding
+    half a card each (a card each where there are two): a 64 MiB bf16
+    CUDA tensor crosses both rings (off the card into shared memory,
+    onto A's card, off it again, onto B's) and reaches B bit for bit.
+    Times the round trip from ``execute`` to the result."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    import chip_smoke as this
+
+    hop = rt.remote(num_gpus=_stage_gpus())(this.ChannelHop)
+    with InputNode() as inp:
+        out = hop.bind().check.bind(hop.bind().hop.bind(inp))
+        out.with_channel_options(buffer_size_bytes=1 << 16)
+    t0 = time.perf_counter()
+    g = out.experimental_compile(use_channels=True, max_in_flight=2,
+                                 buffer_size_bytes=DAG_SLOT_BYTES)
+    compile_s = time.perf_counter() - t0
+    sent = _put_tensor(SEED + 7, DAG_TENSOR_ELEMS)
+    trips, got = [], []
+    try:
+        for _ in range(DAG_TRIPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got.append(g.execute(sent).get(timeout=RUNTIME_TIMEOUT_S))
+            trips.append(time.perf_counter() - t0)
+    finally:
+        g.teardown()
+    for r in got:
+        check(r["bit_identical"] and r["numel"] == sent.numel()
+              and r["device"] == f"cuda:{r['current_device']}",
+              f"dag_channel: the tensor reached B as {r}")
+    nbytes = sent.numel() * sent.element_size()
+    emit("dag_channel", chain="driver -> A -> B", tensor_bytes=nbytes,
+         dtype="bfloat16", num_gpus_per_actor=_stage_gpus(),
+         max_in_flight=2, slot_bytes=DAG_SLOT_BYTES, compile_s=compile_s,
+         round_trip_s=trips, round_trip_s_median=statistics.median(trips[1:]),
+         # two ring crossings, each off one card and onto another
+         gb_s_per_crossing=[2 * nbytes / t / 1e9 for t in trips],
+         bit_identical=True, at_b=got[0])
 
 
 # ------------------------------------------------- serving through the runtime
@@ -1825,6 +2164,7 @@ def main(argv) -> int:
     phase_train_checkpoint()
     phase_ring_blocks(gen)
     flash_launches += phase_dist_train(train)
+    phase_rl_learner()
     flash_launches += phase_runtime_and_trainers(train)
     paged_launches += phase_serving(served)
     kernels = []

@@ -1,7 +1,7 @@
 """Modules of ray_tpu that later slices of the port bring.
 
 The copied runtime keeps ray_tpu's lazy imports pointed at the port's
-own paths (``ray_tpu_torch.dag``, ``ray_tpu_torch.train.pipeline``, ...).
+own paths (``ray_tpu_torch.util.collective``, ...).
 None of them is reached on the runtime's or the trainer's path.  Until
 its slice lands, importing one raises an ImportError that names the
 slice, instead of a bare "No module named ...".  The finder sits at the
@@ -15,12 +15,9 @@ import importlib.abc
 import sys
 from typing import Dict
 
-PIPELINE = "the MPMD pipeline slice (ROADMAP A3)"
 LIBRARIES = "the pure-Python libraries still to copy (ROADMAP A5)"
 
 LATER: Dict[str, str] = {
-    "ray_tpu_torch.dag": PIPELINE,
-    "ray_tpu_torch.train.pipeline": PIPELINE,
     "ray_tpu_torch.util.collective": LIBRARIES,
     "ray_tpu_torch.util.state": LIBRARIES,
     "ray_tpu_torch._private.dashboard": LIBRARIES,

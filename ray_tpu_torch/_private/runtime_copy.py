@@ -56,6 +56,11 @@ COPIED: List[str] = [
     "serve/api.py",
     "serve/rpc_ingress.py",
     "serve/http.py",
+    "dag/__init__.py",
+    "dag/nodes.py",
+    "dag/compiled.py",
+    "dag/channel.py",
+    "dag/execution.py",
 ]
 
 PORTED: Dict[str, str] = {
@@ -75,8 +80,7 @@ PORTED: Dict[str, str] = {
     "_private/head.py":
         "forwards a lease's gpu_ids with an actor's creation push",
     "_private/worker.py":
-        "CUDA_VISIBLE_DEVICES per lease; the LLM loop goes to the port's "
-        "engine; later slices named on import",
+        "CUDA_VISIBLE_DEVICES per lease",
     "serve/__init__.py":
         "the LLM names load on first use: the controller and the proxy "
         "never import torch",
@@ -87,21 +91,26 @@ PORTED: Dict[str, str] = {
         "num_tpus= goes; num_gpus= maps to the GPU resource",
     "train/session.py":
         "names TorchTrainer",
+    "train/pipeline.py":
+        "each stage is an nn.Module on its leased card (num_gpus per "
+        "stage, or device='cpu'); backward re-runs the stage forward "
+        "under autograd; snapshots hold CPU tensors by parameter name",
 }
 
 _MODULE_PATH = re.compile(r"\bray_tpu(?=\.[A-Za-z_])")
 _IMPORT = re.compile(r"\b(import|from) ray_tpu\b")
 # the imported module passed on as an argument or bound as a parameter
-# (serve/api.py's ``_reconcile_one(self, ray_tpu, ...)``)
-_ARGUMENT = re.compile(r"\bray_tpu(?=, )")
+# (serve/api.py's ``_reconcile_one(self, ray_tpu, ...)``, dag/compiled.py's
+# ``_apply_backpressure(ray_tpu)``)
+_ARGUMENT = re.compile(r"\bray_tpu(?=, |\))")
 
 
 def rename(text: str) -> str:
     """ray_tpu's module paths become the port's: ``ray_tpu.x``,
     ``import/from ray_tpu`` and the module passed as an argument
-    (``f(ray_tpu, ...)``) name ``ray_tpu_torch``.  Everything else keeps
-    its text, metric names such as ``ray_tpu_actor_restarts_total``
-    among it."""
+    (``f(ray_tpu, ...)``, ``f(ray_tpu)``) name ``ray_tpu_torch``.
+    Everything else keeps its text, metric names such as
+    ``ray_tpu_actor_restarts_total`` among it."""
     text = _MODULE_PATH.sub("ray_tpu_torch", text)
     return _ARGUMENT.sub("ray_tpu_torch",
                          _IMPORT.sub(r"\1 ray_tpu_torch", text))

@@ -1,11 +1,7 @@
 """CoreWorker: the in-process runtime of every driver and worker.
 
 Ported from ray_tpu's CoreWorker: a lease's ``gpu_ids`` become the
-executing worker's CUDA_VISIBLE_DEVICES (``_apply_gpu_env``), the LLM
-serving loop goes to the port's engine (``serve/llm.py run_llm_loop``)
-ahead of the compiled-graph import, and the system methods of later
-slices (compiled graphs, the pipeline) raise an ImportError naming the
-slice (later_slices.py).
+executing worker's CUDA_VISIBLE_DEVICES (``_apply_gpu_env``).
 
 Equivalent of the reference's CoreWorker
 (reference: src/ray/core_worker/core_worker.h:291 — SubmitTask :910,
@@ -3991,46 +3987,41 @@ class CoreWorker(IntrospectionRpcMixin, RpcHost):
                     # the agent so the OOM watchdog treats this worker
                     # as a last-resort victim (killing it tears down the
                     # whole graph/pipeline/engine, not one task)
+                    from ray_tpu_torch.dag import execution as _dag_exec
+
                     self._push_worker_flags(pinned=True)
                     try:
-                        if spec.method_name == LLM_EXEC_METHOD:
-                            # LLM serving decode loop (serve/llm.py
-                            # run_llm_loop): pins this exec thread to the
-                            # replica engine's continuous-batching step
-                            # loop.  Dispatched before the compiled-graph
-                            # import below: the graph package is a later
-                            # slice of the port, the serving loop is not
-                            from ray_tpu_torch.serve import llm as _llm
+                        if spec.method_name == _dag_exec.DAG_INFO_METHOD:
+                            value = _dag_exec.collect_node_info(self)
+                        elif spec.method_name == _dag_exec.DAG_EXEC_METHOD:
+                            value = _dag_exec.run_actor_loop(
+                                self, self._actor_instance, *args)
+                        elif spec.method_name in (PIPELINE_EXEC_METHOD,
+                                                  PIPELINE_CTL_METHOD):
+                            # MPMD pipeline stage loop / control ops
+                            # (train/pipeline.py): the loop pins this
+                            # exec thread for the whole training run,
+                            # like the compiled-DAG loop above
+                            from ray_tpu_torch.train import pipeline as _pipe
 
-                            value = _llm.run_llm_loop(
+                            if spec.method_name == PIPELINE_EXEC_METHOD:
+                                value = _pipe.run_stage_loop(
+                                    self, self._actor_instance, *args)
+                            else:
+                                value = _pipe.run_stage_ctl(
+                                    self, self._actor_instance, *args)
+                        elif spec.method_name == LLM_EXEC_METHOD:
+                            # LLM serving decode loop (serve/llm.py):
+                            # pins this exec thread to the replica
+                            # engine's continuous-batching step loop
+                            from ray_tpu_torch.serve import llm as _serve_llm
+
+                            value = _serve_llm.run_llm_loop(
                                 self, self._actor_instance, *args)
                         else:
-                            from ray_tpu_torch.dag import \
-                                execution as _dag_exec
-                            if spec.method_name == _dag_exec.DAG_INFO_METHOD:
-                                value = _dag_exec.collect_node_info(self)
-                            elif spec.method_name == _dag_exec.DAG_EXEC_METHOD:
-                                value = _dag_exec.run_actor_loop(
-                                    self, self._actor_instance, *args)
-                            elif spec.method_name in (PIPELINE_EXEC_METHOD,
-                                                      PIPELINE_CTL_METHOD):
-                                # MPMD pipeline stage loop / control ops
-                                # (train/pipeline.py): the loop pins this
-                                # exec thread for the whole training run,
-                                # like the compiled-DAG loop above
-                                from ray_tpu_torch.train import \
-                                    pipeline as _pipe
-
-                                if spec.method_name == PIPELINE_EXEC_METHOD:
-                                    value = _pipe.run_stage_loop(
-                                        self, self._actor_instance, *args)
-                                else:
-                                    value = _pipe.run_stage_ctl(
-                                        self, self._actor_instance, *args)
-                            else:
-                                raise AttributeError(
-                                    f"unknown compiled-DAG system method "
-                                    f"{spec.method_name!r}")
+                            raise AttributeError(
+                                f"unknown compiled-DAG system method "
+                                f"{spec.method_name!r}")
                     finally:
                         self._push_worker_flags(pinned=False)
                 else:

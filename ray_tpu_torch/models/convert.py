@@ -39,12 +39,17 @@ def params_from_flax(tree: Mapping[str, Any],
                      cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """State dict of :class:`LlamaModel` (fp32 CPU tensors; loading casts
     them to the model's weight dtype: ``cfg.dtype``, or fp32 for a model
-    built with ``param_dtype=torch.float32``)."""
+    built with ``param_dtype=torch.float32``).  A pipeline stage's
+    subtree (the JAX package's ``slice_params_for_stage`` of the tree)
+    gives that :class:`LlamaStage`'s state dict: the entries it holds,
+    each layer under its global index."""
     hd = cfg.head_dim
-    sd = {"embed.weight": _t(tree["embed"]["embedding"]),
-          "final_norm.scale": _t(tree["final_norm"]["scale"]),
-          "lm_head.weight": _linear(tree["lm_head"]["kernel"], cfg.dim)}
-    for i in range(cfg.n_layers):
+    sd = {}
+    if "embed" in tree:
+        sd["embed.weight"] = _t(tree["embed"]["embedding"])
+    layers = sorted(int(k[len("layer_"):]) for k in tree
+                    if k.startswith("layer_"))
+    for i in layers:
         layer = tree[f"layer_{i}"]
         attn, mlp = layer["attn"], layer["mlp"]
         pre = f"layers.{i}."
@@ -60,4 +65,8 @@ def params_from_flax(tree: Mapping[str, Any],
                                                      cfg.dim)
         sd[pre + "mlp.w2.weight"] = _linear(mlp["w2"]["kernel"],
                                             cfg.hidden_dim)
+    if "final_norm" in tree:
+        sd["final_norm.scale"] = _t(tree["final_norm"]["scale"])
+    if "lm_head" in tree:
+        sd["lm_head.weight"] = _linear(tree["lm_head"]["kernel"], cfg.dim)
     return sd

@@ -24,6 +24,11 @@ multiplies by them in fp32.
 Pools are updated in place (``index_copy_``) where the JAX engine
 donated them to jit.
 
+``LlamaStage`` holds a contiguous range of the blocks (and the embedding
+on the first stage, the head on the last) for the MPMD pipeline; every
+weight is drawn from a generator of its own (``init_weights``), so a
+stage's init is its slice of the whole model's.
+
 Over a process group (``train.gspmd``), ``llama_param_rules`` is the
 tensor-parallel plan; attention takes its head counts from its local
 projections, the no-cache forward its positions from ``start_pos``,
@@ -33,6 +38,7 @@ and the loss of a sequence shard is ``lm_loss_sum`` over
 
 from __future__ import annotations
 
+import hashlib
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
@@ -304,14 +310,66 @@ class Block(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+def _param_seed(seed: int, name: str) -> int:
+    """The seed of parameter ``name``'s own generator.  flax folds one
+    key per module path into the root key; this is its counterpart, so a
+    stage that holds some layers of the model draws the same values for
+    them as the whole model does."""
+    digest = hashlib.blake2b(f"{int(seed)}/{name}".encode(),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 1
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, seed: int) -> None:
+    """flax's initializers: dense kernels lecun-normal (normal with
+    variance 1/fan_in truncated at two of its untruncated standard
+    deviations), the embedding normal with std 1/sqrt(dim), norm scales
+    ones.  Each weight is drawn in fp32 from a generator of its own,
+    seeded from ``seed`` and the weight's name in the state dict, then
+    cast to the weight's dtype."""
+    for name, mod in module.named_modules():
+        if isinstance(mod, RMSNorm):
+            mod.scale.fill_(1.0)
+            continue
+        if not isinstance(mod, (nn.Linear, nn.Embedding)):
+            continue
+        w = torch.empty(mod.weight.shape, dtype=torch.float32,
+                        device=mod.weight.device)
+        gen = torch.Generator(w.device).manual_seed(
+            _param_seed(seed, f"{name}.weight"))
+        if isinstance(mod, nn.Linear):
+            std = math.sqrt(1.0 / mod.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                  generator=gen)
+        else:
+            nn.init.normal_(w, 0.0, 1.0 / math.sqrt(mod.embedding_dim),
+                            generator=gen)
+        mod.weight.copy_(w)
+
+
+def _blocks(cfg: LlamaConfig, layers, x: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """``x`` through ``layers`` in order, each block recomputed in the
+    backward pass under ``cfg.remat``."""
+    for layer in layers:
+        if cfg.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(layer, x, positions, use_reentrant=False)
+        else:
+            x = layer(x, positions)
+    return x
+
+
 class LlamaModel(nn.Module):
     """The decoder.  ``seed`` initializes the weights with flax's scales
-    from a ``torch.Generator`` on the model's device; ``seed=None``
-    leaves them uninitialized for a caller that loads a state_dict
-    (e.g. from ``models.convert.params_from_flax``).  ``param_dtype``
-    holds the linear and embedding weights in that dtype (fp32 master
-    weights for training) while computing in ``cfg.dtype``; None holds
-    them in ``cfg.dtype``."""
+    (``init_weights``); ``seed=None`` leaves them uninitialized for a
+    caller that loads a state_dict (e.g. from
+    ``models.convert.params_from_flax``).  ``param_dtype`` holds the
+    linear and embedding weights in that dtype (fp32 master weights for
+    training) while computing in ``cfg.dtype``; None holds them in
+    ``cfg.dtype``."""
 
     def __init__(self, cfg: LlamaConfig, kernel: Optional[Callable] = None,
                  page_size: int = 0, device: DeviceLike = None,
@@ -334,34 +392,11 @@ class LlamaModel(nn.Module):
                                param_dtype)
         self.to_empty(device=dev)
         if seed is not None:
-            self.init_weights(torch.Generator(dev).manual_seed(int(seed)))
+            init_weights(self, seed)
 
     @property
     def device(self) -> torch.device:
         return self.lm_head.weight.device
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """flax's initializers: dense kernels lecun-normal (normal with
-        variance 1/fan_in truncated at two of its untruncated standard
-        deviations), the embedding normal with std 1/sqrt(dim), norm
-        scales ones.  Drawn in fp32, then cast to the weights' dtype."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                std = math.sqrt(1.0 / mod.in_features) / 0.87962566103423978
-                w = torch.empty(mod.weight.shape, dtype=torch.float32,
-                                device=mod.weight.device)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                mod.weight.copy_(w)
-            elif isinstance(mod, nn.Embedding):
-                w = torch.empty(mod.weight.shape, dtype=torch.float32,
-                                device=mod.weight.device)
-                nn.init.normal_(w, 0.0, 1.0 / math.sqrt(mod.embedding_dim),
-                                generator=generator)
-                mod.weight.copy_(w)
-            elif isinstance(mod, RMSNorm):
-                mod.scale.fill_(1.0)
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[Dict[str, Any]] = None, start_pos: int = 0):
@@ -394,14 +429,64 @@ class LlamaModel(nn.Module):
         positions = torch.arange(start_pos, start_pos + tokens.shape[1],
                                  device=tokens.device,
                                  dtype=torch.int32).expand(tokens.shape)
-        for layer in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
-                from torch.utils.checkpoint import checkpoint
-
-                x = checkpoint(layer, x, positions, use_reentrant=False)
-            else:
-                x = layer(x, positions)
+        x = _blocks(cfg, self.layers, x, positions)
         return self.lm_head(self.final_norm(x))
+
+
+class LlamaStage(nn.Module):
+    """A contiguous layer range of :class:`LlamaModel` for MPMD pipeline
+    parallelism: the first stage holds the embedding, the last the final
+    norm and the lm_head, and every stage the blocks ``[start, end)``.
+
+    Its state-dict keys are the full model's (``embed.weight``,
+    ``layers.{i}.…`` with the global ``i``, ``final_norm.scale``,
+    ``lm_head.weight``), so a full model's state dict slices into stages
+    (``train.pipeline.slice_params_for_stage``), and a stage initialized
+    from ``seed`` holds exactly its slice of ``LlamaModel(cfg,
+    seed=seed)``.  Input is tokens [B, S] on the first stage and
+    activations [B, S, D] (``cfg.dtype``) otherwise; output is
+    activations, or logits on the last stage.  Attention routes as
+    :class:`LlamaModel`'s does; ``cfg.remat`` recomputes each block in
+    the backward pass."""
+
+    def __init__(self, cfg: LlamaConfig, start: int, end: int, *,
+                 first: bool = False, last: bool = False,
+                 kernel: Optional[Callable] = None,
+                 device: DeviceLike = None, seed: Optional[int] = 0,
+                 param_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if not 0 <= start < end <= cfg.n_layers:
+            raise ValueError(f"layers [{start}, {end}) of {cfg.n_layers}")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.start, self.end = start, end
+        self.first, self.last = first, last
+        meta = torch.device("meta")
+        if first:
+            self.embed = nn.Embedding(cfg.vocab_size, cfg.dim,
+                                      dtype=param_dtype or cfg.dtype,
+                                      device=meta)
+        self.layers = nn.ModuleDict(
+            {str(i): Block(cfg, kernel, 0, meta, param_dtype)
+             for i in range(start, end)})
+        if last:
+            self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, meta)
+            self.lm_head = _linear(cfg, cfg.dim, cfg.vocab_size, meta,
+                                   param_dtype)
+        self.to_empty(device=dev)
+        if seed is not None:
+            init_weights(self, seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if self.first:
+            x = self.embed(x).to(cfg.dtype)
+        positions = torch.arange(x.shape[1], device=x.device,
+                                 dtype=torch.int32).expand(x.shape[:2])
+        x = _blocks(cfg, self.layers.values(), x, positions)
+        if self.last:
+            x = self.lm_head(self.final_norm(x))
+        return x
 
 
 def make_kv_pools(cfg: LlamaConfig, num_slots: int, dtype: Any = None,

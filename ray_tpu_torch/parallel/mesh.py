@@ -7,7 +7,8 @@ same:
   - "tp":   tensor parallelism (heads / mlp-hidden sharded)
   - "sp":   sequence/context parallelism (sequence dim sharded; ring
             attention rotates K/V around the sp group)
-  - "pp":   pipeline stages (not ported: the pipeline is a later slice)
+  - "pp":   pipeline stages: not an axis of one program here;
+            ``train.TrainPipeline`` runs one actor per stage
 
 ``MeshSpec`` and ``mesh_axes_for`` are copies of the JAX package's.
 Without a process group a mesh spans one device: the CUDA card by
@@ -124,8 +125,9 @@ _MULTI_DEVICE = (
     "meshes over more than one device (dp/fsdp/tp/sp > 1) need "
     "torch.distributed process groups: call "
     "ray_tpu_torch.parallel.init_distributed in every process first")
-_PIPELINE = ("pp > 1 needs pipeline stages, which the port's pipeline "
-             "slice (ray_tpu/train/pipeline.py) has not ported yet")
+_PIPELINE = ("pp > 1 is not a mesh axis of one program: train pipeline "
+             "stages with ray_tpu_torch.train.TrainPipeline, one actor "
+             "per stage")
 
 # The DeviceMesh's own dim order: AXIS_ORDER with sp moved ahead of
 # fsdp, so that dp and sp, the axes that replicate parameters, sit side

@@ -10,8 +10,9 @@ the last reported checkpoint when a worker dies.  Inside the loop, the
 flagship model's train step (``train.gspmd.build_llama_train_state``)
 runs on one device or over the group's mesh; checkpoints go through
 torch.distributed.checkpoint with top-k retention, over local or
-fsspec storage.  The MPMD pipeline (``train.pipeline``) comes with a
-later slice.
+fsspec storage.  ``TrainPipeline`` (``train.pipeline``) trains the
+model as MPMD pipeline stages, one actor per stage, over compiled-graph
+channels.
 """
 
 import importlib
@@ -27,6 +28,8 @@ _EXPORTS = {
     "Result": "trainer", "RunConfig": "trainer", "ScalingConfig": "trainer",
     "TorchTrainer": "trainer", "TrainingFailedError": "trainer",
     "WorkerGroup": "worker_group",
+    "PipelineError": "pipeline", "TrainPipeline": "pipeline",
+    "one_f_one_b": "pipeline", "partition_layers": "pipeline",
 }
 
 __all__ = sorted(_EXPORTS)

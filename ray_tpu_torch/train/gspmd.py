@@ -35,9 +35,9 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, distribute_tensor
 
-from ray_tpu_torch.models.llama import (LlamaModel, causal_lm_loss,
-                                        llama_param_rules, lm_loss_sum,
-                                        shifted_targets)
+from ray_tpu_torch.models.llama import (LlamaModel, LlamaStage,
+                                        causal_lm_loss, llama_param_rules,
+                                        lm_loss_sum, shifted_targets)
 from ray_tpu_torch.parallel.mesh import Mesh, shard_batch
 
 # optax.adamw(learning_rate) with its defaults.  optax steps
@@ -91,6 +91,91 @@ def build_llama_train_state(cfg, mesh: Mesh, rng_seed: int = 0,
         return p, o, loss.detach()
 
     return model, opt, step_fn, model
+
+
+def build_llama_stage_state(cfg, mesh: Mesh, layer_range: Tuple[int, int],
+                            *, first: bool, last: bool, microbatch_size: int,
+                            seq_len: int, num_microbatches: int,
+                            rng_seed: int = 0, learning_rate: float = 3e-4,
+                            attention_kernel: Optional[Callable] = None,
+                            param_dtype: Optional[torch.dtype] = torch.float32
+                            ) -> Dict[str, Any]:
+    """One MPMD pipeline stage on a one-device mesh: the
+    :class:`LlamaStage` of ``layer_range`` (weights from ``rng_seed``:
+    the stage's slice of the whole model's init), its AdamW, and the
+    functions the 1F1B loop replays.  Returns a dict:
+
+      params, opt_state          the stage module and its AdamW
+      fwd(p, x) -> y             stage forward, no autograd graph kept
+                                 (None on the last stage, whose forward
+                                 is part of its loss_bwd)
+      bwd(p, x, gy) -> gx        re-runs the stage forward under autograd
+                                 and back-propagates ``gy``, the JAX
+                                 package's recompute inside the vjp, so a
+                                 stage keeps only its in-flight INPUTS;
+                                 parameter grads add into ``.grad``; gx
+                                 is None on the first stage
+      loss_bwd(p, x, tokens) -> (loss, gx)   last stage only: the loss
+                                 of the microbatch, its grads into
+                                 ``.grad``, gx (None when also first)
+      opt_step(p, o)             AdamW on the grads summed over the
+                                 step's microbatches, scaled by 1/m
+      zero_grads(p)              clears the grads before a step
+      shard_value(x) -> x        a microbatch on the stage's device
+
+    ``.grad`` is the accumulator the JAX package threads through
+    ``accum``, so there is none.  ``microbatch_size`` and ``seq_len``
+    shape the JAX package's init sample; the port's init needs none."""
+    del microbatch_size, seq_len
+    if math.prod(mesh.shape.values()) > 1:
+        raise NotImplementedError(
+            f"a stage on mesh {mesh.shape}: each pipeline stage is one "
+            f"process on one device (ROADMAP A6 brings stages over "
+            f"several cards)")
+    start, end = layer_range
+    model = LlamaStage(cfg, start, end, first=first, last=last,
+                       kernel=attention_kernel, device=mesh.device,
+                       seed=rng_seed, param_dtype=param_dtype)
+    opt = _adamw(model, learning_rate)
+    scale = 1.0 / float(num_microbatches)
+
+    def needs_grad(x: torch.Tensor) -> torch.Tensor:
+        return x.detach().requires_grad_(not first)
+
+    def fwd(p: LlamaStage, x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return p(x)
+
+    def bwd(p: LlamaStage, x: torch.Tensor, gy: torch.Tensor):
+        x = needs_grad(x)
+        torch.autograd.backward(p(x), gy)
+        return x.grad
+
+    def loss_bwd(p: LlamaStage, x: torch.Tensor, tokens: torch.Tensor):
+        x = needs_grad(x)
+        loss = causal_lm_loss(p(x), tokens)
+        loss.backward()
+        return loss.detach(), x.grad
+
+    def zero_grads(p: LlamaStage) -> None:
+        opt.zero_grad(set_to_none=True)
+
+    def opt_step(p: LlamaStage, o: torch.optim.Optimizer) -> None:
+        with torch.no_grad():
+            for q in p.parameters():
+                if q.grad is not None:
+                    q.grad.mul_(scale)
+        o.step()
+
+    return {
+        "params": model, "opt_state": opt,
+        "fwd": None if last else fwd,
+        "bwd": None if last else bwd,
+        "loss_bwd": loss_bwd if last else None,
+        "opt_step": opt_step, "zero_grads": zero_grads,
+        "shard_value": lambda x: shard_batch(mesh, x),
+        "model": model, "mesh": mesh,
+    }
 
 
 def _adamw(model: nn.Module, learning_rate: float) -> torch.optim.AdamW:

@@ -244,7 +244,7 @@ def test_sharded_bf16_step_matches_jax(runs):
 def test_shard_params_and_batch_placement(runs):
     """shard_params over dp2·fsdp2·tp2: a rule puts w's dim 1 over tp;
     b has no rule, so its largest dim goes over fsdp.  A pipeline axis
-    raises, naming the pipeline slice."""
+    raises, naming TrainPipeline."""
     got, _want, _data, _ = runs
     w, b = np.arange(32.0).reshape(8, 4), np.arange(6.0)
     for rank in got:
@@ -252,7 +252,7 @@ def test_shard_params_and_batch_placement(runs):
         t, f = r["index"]["tp"], r["index"]["fsdp"]
         np.testing.assert_array_equal(r["w"], w[:, 2 * t:2 * t + 2])
         np.testing.assert_array_equal(r["b"], b[3 * f:3 * f + 3])
-        assert "pipeline" in rank["pp_error"]
+        assert "TrainPipeline" in rank["pp_error"]
     assert batch_pspec() == {"dp": 0, "fsdp": 0}
 
 

@@ -367,3 +367,29 @@ def test_train_loop_thread_drives_the_workers_card(port_cluster):
         assert len(p["final"]["visible"].split(",")) == 1
     finally:
         group.shutdown()
+
+
+def test_llama_stages_on_gpu_equal_the_model_and_launch_flash(cuda):
+    """Two LlamaStages drawn from the model's seed hold its weights on
+    the card, and chained they give its logits, each block's attention
+    through the flash kernel (S = 512, bf16)."""
+    from ray_tpu_torch.models.llama import LlamaModel, LlamaStage
+
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=1, hidden_dim=512, max_seq_len=512)
+    model = LlamaModel(cfg, device=cuda, seed=3)
+    first = LlamaStage(cfg, 0, 1, first=True, device=cuda, seed=3)
+    last = LlamaStage(cfg, 1, 2, last=True, device=cuda, seed=3)
+    sd = model.state_dict()
+    for stage in (first, last):
+        for k, v in stage.state_dict().items():
+            assert torch.equal(v, sd[k]), k
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    before = fa.LAUNCHES
+    with torch.no_grad():
+        got = last(first(tokens))
+        want = model(tokens)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES - before == 2 * cfg.n_layers
+    assert torch.equal(got, want)

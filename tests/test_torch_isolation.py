@@ -64,6 +64,7 @@ def test_package_imports_with_jax_and_ray_tpu_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "print(' '.join(mods))\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'ray_tpu')\n"
         "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print(len(mods))\n")
@@ -71,7 +72,13 @@ def test_package_imports_with_jax_and_ray_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 12
+    *_, listed, count = proc.stdout.strip().splitlines()
+    assert int(count) >= 12
+    for name in ("ray_tpu_torch.dag", "ray_tpu_torch.dag.execution",
+                 "ray_tpu_torch.train.pipeline", "ray_tpu_torch.rllib",
+                 "ray_tpu_torch.rllib.core.learner",
+                 "ray_tpu_torch.rllib.env_runner"):
+        assert name in listed.split(), name
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -83,8 +90,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
                                             make_kv_pools)
     from ray_tpu_torch.parallel import MeshSpec, make_mesh
     from ray_tpu_torch.parallel.mesh import Mesh
+    from ray_tpu_torch.models.llama import LlamaStage
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import ActorCriticModule
     from ray_tpu_torch.serve.llm import LLMEngine
-    from ray_tpu_torch.train.gspmd import build_llama_train_state
+    from ray_tpu_torch.train.gspmd import (build_llama_stage_state,
+                                           build_llama_train_state)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = LlamaConfig.tiny()
@@ -93,7 +104,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
                  lambda: entry(), lambda: LlamaModel(cfg),
                  lambda: make_kv_pools(cfg, 16), lambda: LLMEngine(cfg),
                  lambda: make_mesh(), lambda: make_mesh(MeshSpec(dp=-1)),
-                 lambda: build_llama_train_state(cfg, cuda_mesh)):
+                 lambda: build_llama_train_state(cfg, cuda_mesh),
+                 lambda: LlamaStage(cfg, 0, 1, first=True),
+                 lambda: build_llama_stage_state(
+                     cfg, cuda_mesh, (0, 1), first=True, last=False,
+                     microbatch_size=1, seq_len=8, num_microbatches=1),
+                 lambda: ActorCriticModule(4, 2),
+                 lambda: PPOLearner(ActorCriticModule(4, 2, device="cpu"))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -20,6 +20,7 @@ import torch
 import ray_tpu_torch as rt
 from ray_tpu_torch._private import runtime_copy, serialization
 from ray_tpu_torch._private.later_slices import LATER
+from tests.torch_waits import bounded
 
 torch.set_num_threads(2)   # six xdist workers share the test machine
 
@@ -62,14 +63,16 @@ def test_rename_touches_module_paths_only():
            "cmd = fast_python_cmd('ray_tpu._private.head')\n"
            "m = Counter('ray_tpu_actor_restarts_total')\n"
            "print('ray_tpu head listening')\n"
-           "self._reconcile_one(ray_tpu, name, app)\n")
+           "self._reconcile_one(ray_tpu, name, app)\n"
+           "self._apply_backpressure(ray_tpu)\n")
     assert runtime_copy.rename(src) == (
         "import ray_tpu_torch\nfrom ray_tpu_torch import _native\n"
         "from ray_tpu_torch._private.rpc import RpcHost\n"
         "cmd = fast_python_cmd('ray_tpu_torch._private.head')\n"
         "m = Counter('ray_tpu_actor_restarts_total')\n"
         "print('ray_tpu head listening')\n"
-        "self._reconcile_one(ray_tpu_torch, name, app)\n")
+        "self._reconcile_one(ray_tpu_torch, name, app)\n"
+        "self._apply_backpressure(ray_tpu_torch)\n")
 
 
 @pytest.mark.parametrize("name", sorted(LATER))
@@ -142,12 +145,13 @@ def test_evict_from_a_collection_inside_the_store_lock_finishes(
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory):
     os.environ["RT_TMPDIR"] = str(tmp_path_factory.mktemp("rt"))
-    rt.init(num_cpus=2, resources={"GPU": 4},
-            object_store_memory=64 * 1024 * 1024)
+    bounded(lambda: rt.init(num_cpus=2, resources={"GPU": 4},
+                            object_store_memory=64 * 1024 * 1024),
+            120, "rt.init")
     try:
         yield rt
     finally:
-        rt.shutdown()
+        bounded(rt.shutdown, 60, "rt.shutdown")
         os.environ.pop("RT_TMPDIR", None)
 
 

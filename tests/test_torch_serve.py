@@ -32,6 +32,7 @@ from ray_tpu.models.llama import LlamaConfig as JaxConfig
 from ray_tpu.serve.llm import LLMEngine as JaxEngine
 from ray_tpu_torch import serve
 from ray_tpu_torch.models.llama import LlamaConfig
+from tests.torch_waits import bounded
 
 force_cpu_jax()
 torch.set_num_threads(2)   # six xdist workers share the test machine
@@ -39,6 +40,7 @@ torch.set_num_threads(2)   # six xdist workers share the test machine
 MODEL = {"vocab_size": 64, "dim": 32, "n_layers": 2, "n_heads": 4,
          "n_kv_heads": 2, "hidden_dim": 64, "max_seq_len": 256}
 KW = dict(page_size=8, num_pages=33, max_batch=4, prefill_chunk=8)
+SERVE_RUN_S = 240   # a deploy that has not finished by then has stalled
 DISAGG_PROMPT = list(range(3, 22))   # 19 tokens -> 3 shipped pages
 
 
@@ -114,9 +116,10 @@ def oracle():
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory, oracle):
     os.environ["RT_TMPDIR"] = str(tmp_path_factory.mktemp("rt"))
-    rt.init(num_cpus=4, resources={"GPU": 1},
-            object_store_memory=96 << 20)
-    host, port = serve.start_http()
+    bounded(lambda: rt.init(num_cpus=4, resources={"GPU": 1},
+                            object_store_memory=96 << 20),
+            120, "rt.init")
+    host, port = bounded(serve.start_http, 120, "serve.start_http")
     try:
         yield {"host": host, "port": port, "oracle": oracle}
     finally:
@@ -125,7 +128,7 @@ def cluster(tmp_path_factory, oracle):
                 stop()
             except Exception:
                 pass
-        rt.shutdown()
+        bounded(rt.shutdown, 60, "rt.shutdown")
         os.environ.pop("RT_TMPDIR", None)
 
 
@@ -204,7 +207,8 @@ def test_function_deployment_and_http_json(cluster):
     def doubler(x):
         return {"doubled": int(x["n"]) * 2} if isinstance(x, dict) else x * 2
 
-    handle = serve.run(doubler.bind())
+    handle = bounded(lambda: serve.run(doubler.bind()), SERVE_RUN_S,
+                     "serve.run")
     assert rt.get(handle.remote(4), timeout=60) == 8
     conn = http.client.HTTPConnection(cluster["host"], cluster["port"],
                                       timeout=60)
@@ -245,7 +249,7 @@ def llm(cluster):
 
     app = Deployment(ProbedLLM, "llm", llm=True).bind(
         **_engine_kwargs(cluster, detach_grace_s=0.3))
-    return serve.run(app)
+    return bounded(lambda: serve.run(app), SERVE_RUN_S, "serve.run")
 
 
 def test_llm_sse_end_to_end_matches_the_jax_engine(cluster, llm, oracle):
@@ -305,10 +309,11 @@ def test_disaggregated_prefill_matches_the_jax_engine(cluster, oracle):
     through the object store, and the decode replica attaches it.
     Tokens equal ray_tpu's engine's; the shipped-page counters move on
     both sides and both end with no page in use."""
-    h = serve.run(serve.llm_deployment(
+    h = bounded(lambda: serve.run(serve.llm_deployment(
         "llm_disagg", prefill_replicas=1,
         ray_actor_options={"num_gpus": 0.5},
-        **_engine_kwargs(cluster, detach_grace_s=5.0)))
+        **_engine_kwargs(cluster, detach_grace_s=5.0))), SERVE_RUN_S,
+        "serve.run")
     pf = serve.get_handle("llm_disagg-prefill")
     conn, resp = _sse(cluster, "llm_disagg",
                       {"tokens": DISAGG_PROMPT, "max_new_tokens": 6})

@@ -13,7 +13,8 @@ tests of tests/test_train.py to the port.
 
 Train loops are built inside functions so cloudpickle sends them by
 value: a worker imports nothing of this file (nor of JAX, on the port's
-side).
+side).  Every blocking call has a timeout: a ``fit()`` that has not
+returned within ``FIT_S`` fails its test instead of stalling the run.
 """
 
 import os
@@ -28,11 +29,14 @@ import ray_tpu
 import ray_tpu_torch as rt
 from ray_tpu_torch import train
 
+from tests.torch_waits import bounded
+
 torch.set_num_threads(2)   # six xdist workers share the test machine
 
 LR = 3e-4
 STEPS = 3
 LOSS_REL = 1e-5
+FIT_S = 240        # a fit() that has not returned by then has stalled
 TOKENS = np.random.default_rng(0).integers(0, 256, (4, 32)).astype(np.int32)
 
 
@@ -109,10 +113,10 @@ def jax_reference():
 
     ray_tpu.init(num_cpus=2, object_store_memory=64 * 1024 * 1024)
     try:
-        result = JaxTrainer(
+        result = bounded(JaxTrainer(
             _jax_loop(), scaling_config=ScalingConfig(num_workers=1),
             train_loop_config={"tokens": TOKENS, "lr": LR,
-                               "steps": STEPS}).fit()
+                               "steps": STEPS}).fit, FIT_S, "fit()")
         out = ([m["loss"] for m in result.metrics_history],
                own(result.per_worker_final[0]))
         del result
@@ -124,21 +128,23 @@ def jax_reference():
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory):
     os.environ["RT_TMPDIR"] = str(tmp_path_factory.mktemp("rt"))
-    rt.init(num_cpus=2, object_store_memory=64 * 1024 * 1024)
+    bounded(lambda: rt.init(num_cpus=2,
+                            object_store_memory=64 * 1024 * 1024),
+            120, "rt.init")
     try:
         yield rt
     finally:
-        rt.shutdown()
+        bounded(rt.shutdown, 60, "rt.shutdown")
         os.environ.pop("RT_TMPDIR", None)
 
 
 def _fit_port(init, workers):
-    return train.TorchTrainer(
+    return bounded(train.TorchTrainer(
         _port_loop(),
         scaling_config=train.ScalingConfig(num_workers=workers,
                                            use_gpu=False),
         train_loop_config={"tokens": TOKENS, "lr": LR, "steps": STEPS,
-                           "init": init}).fit()
+                           "init": init}).fit, FIT_S, "fit()")
 
 
 _port_runs = {}
@@ -180,9 +186,9 @@ def test_default_scaling_config_without_gpus_raises_at_once(cluster):
     assert train.ScalingConfig(use_gpu=False).worker_resources() == {}
     t0 = time.monotonic()
     with pytest.raises(rt.SchedulingError, match="needs 2 GPU"):
-        train.TorchTrainer(lambda: None,
-                           scaling_config=train.ScalingConfig(
-                               num_workers=2)).fit()
+        bounded(train.TorchTrainer(lambda: None,
+                                   scaling_config=train.ScalingConfig(
+                                       num_workers=2)).fit, FIT_S, "fit()")
     assert time.monotonic() - t0 < 10
 
 
@@ -198,17 +204,17 @@ def test_trainer_error_surfaces(cluster):
                                                      use_gpu=False),
         train_loop_config={})
     with pytest.raises(train.TrainingFailedError, match="train exploded"):
-        trainer.fit()
+        bounded(trainer.fit, FIT_S, "fit()")
 
 
 def test_worker_group_execute(cluster):
-    g = train.WorkerGroup(3)
+    g = bounded(lambda: train.WorkerGroup(3), 120, "WorkerGroup(3)")
     try:
-        infos = g.execute("node_info")
+        infos = g.execute("node_info", timeout=60)
         assert len(infos) == 3 and len({i["pid"] for i in infos}) == 3
         assert all(i["ip"] for i in infos)
     finally:
-        g.shutdown()
+        bounded(g.shutdown, 60, "WorkerGroup.shutdown")
 
 
 def test_report_outside_session_raises():
@@ -248,7 +254,7 @@ def test_fit_retries_worker_death_and_resumes(cluster):
         scaling_config=train.ScalingConfig(num_workers=1, use_gpu=False),
         run_config=train.RunConfig(name="ft_run", failure_max_retries=1),
         train_loop_config={"marker": marker})
-    result = trainer.fit()
+    result = bounded(trainer.fit, FIT_S, "fit()")
     steps = [m["step"] for m in result.metrics_history]
     assert result.per_worker_final == ["done"]
     # ran 0,1,2 then died at 3; resumed from the last checkpoint the
@@ -265,4 +271,4 @@ def test_fit_exhausted_retries_raises(cluster):
         scaling_config=train.ScalingConfig(num_workers=1, use_gpu=False),
         run_config=train.RunConfig(failure_max_retries=1))
     with pytest.raises(train.TrainingFailedError):
-        trainer.fit()
+        bounded(trainer.fit, FIT_S, "fit()")
