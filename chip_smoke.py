@@ -37,7 +37,14 @@ card), whose first loss must be the train phase's and whose stage
 processes count their own flash launches; 2 layers in fp32 through the
 pipeline against the single-program step; and a channel-compiled chain
 of two half-card actors that must carry a 64 MiB bf16 CUDA tensor bit
-for bit.  Before them, one PPO learner update on the card over a
+for bit.  Then the libraries a trainer uses: two bench_1b trials of
+``tune.Tuner`` at ``{"GPU": 0.5}`` each on the one card, one per
+learning rate, whose first losses must be the train phase's (and the
+3e-4 trial's the trainer phase's); the train phase's configuration
+through ``TorchTrainer`` fed by a ``data.from_numpy`` Dataset whose
+first batch is the train batch; and a placement group of two half-card
+bundles whose actors both run on card "0", after whose removal a
+whole-card actor starts.  Before them, one PPO learner update on the card over a
 CartPole-shaped rollout against the same update on the CPU.  Then
 serving through that runtime, behind the HTTP proxy:
 the serve phase's engine and prompts in a ``num_gpus=1`` replica, as
@@ -1305,12 +1312,17 @@ def phase_runtime(tmp: str) -> None:
 
 
 def trainer_loop(config: dict) -> dict:
-    """The train loop TorchTrainer runs inside its GPU-pinned actor: a
-    one-rank process group over nccl, ``MeshSpec(fsdp=-1)``, the train
-    phase's model and batch; reports each step's loss and time.  It
-    reports a checkpoint after each step before ``save_until`` and
-    resumes from the one it is given; ``die_at`` ends the first life of
-    the process at that step."""
+    """The train loop TorchTrainer (and a Tune trial) runs inside its
+    GPU-pinned actor: a one-rank process group over nccl,
+    ``MeshSpec(fsdp=-1)``, the train phase's model and batch; reports
+    each step's loss and time, with the process's flash launches so far,
+    its card and its peak memory.  ``learning_rate`` overrides AdamW's
+    3e-4.  With ``tokens_from="dataset"`` each step takes its batch from
+    the worker's shard of the dataset "train" instead, moved to
+    ``cuda:0``, and reports the host time the pull took.  It reports a
+    checkpoint after each step before ``save_until`` and resumes from
+    the one it is given; ``die_at`` ends the first life of the process
+    at that step."""
     import dataclasses
 
     from torch.distributed.checkpoint.state_dict import (get_state_dict,
@@ -1331,8 +1343,17 @@ def trainer_loop(config: dict) -> dict:
         mesh = make_mesh(MeshSpec(fsdp=-1))
         params, opt, step_fn, _ = build_llama_train_state(
             cfg, mesh, rng_seed=config["seed"], batch_size=TRAIN_SHAPE[0],
-            seq_len=TRAIN_SHAPE[1])
-        tokens = torch.from_numpy(_train_tokens(cfg, config["seed"])).cuda()
+            seq_len=TRAIN_SHAPE[1],
+            **{k: config[k] for k in ("learning_rate",) if k in config})
+        if config.get("tokens_from") == "dataset":
+            batches = rtt.get_dataset_shard("train").iter_batches(
+                batch_size=TRAIN_SHAPE[0])
+        else:
+            tokens = torch.from_numpy(
+                _train_tokens(cfg, config["seed"])).cuda()
+        where = {"cuda_visible_devices":
+                 os.environ.get("CUDA_VISIBLE_DEVICES"),
+                 "device_name": torch.cuda.get_device_name()}
         start = 0
         resumed_from = rtt.get_checkpoint()
         if resumed_from:
@@ -1352,6 +1373,14 @@ def trainer_loop(config: dict) -> dict:
                     and not os.path.exists(config["marker"]):
                 open(config["marker"], "w").close()
                 os._exit(1)  # a hard worker death, not a Python error
+            pull = {}
+            if config.get("tokens_from") == "dataset":
+                t0 = time.perf_counter()
+                # a copy: the batch views the store's read-only arena
+                tokens = torch.tensor(next(batches)["tokens"],
+                                      device="cuda:0")
+                pull = {"pull_s": time.perf_counter() - t0,
+                        "batch_shape": list(tokens.shape)}
             t0 = time.perf_counter()
             params, opt, loss = step_fn(params, opt, tokens)
             torch.cuda.synchronize()
@@ -1368,13 +1397,14 @@ def trainer_loop(config: dict) -> dict:
                     {"model": model_sd, "opt": opt_sd, "step": step})
                 save_s = time.perf_counter() - t0
             rtt.report({"step": step, "loss": float(loss), "step_s": step_s,
-                        "save_s": save_s, "at": time.time()},
+                        "save_s": save_s, "at": time.time(), **pull,
+                        "flash_launches": fa.LAUNCHES, "setup_s": setup_s,
+                        "max_memory_allocated":
+                        torch.cuda.max_memory_allocated(), **where},
                        checkpoint=ckpt)
         return {"flash_launches": fa.LAUNCHES,
                 "steps_run": config["steps"] - start,
-                "resumed_from": resumed_from, "setup_s": setup_s,
-                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
-                "device_name": torch.cuda.get_device_name(),
+                "resumed_from": resumed_from, "setup_s": setup_s, **where,
                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
     finally:
         shutdown_distributed()
@@ -1384,12 +1414,12 @@ TRAINER_STEPS = 6
 TRAINER_LOSS_REL = 1e-5
 
 
-def phase_trainer(train: dict, tmp: str) -> int:
+def phase_trainer(train: dict, tmp: str) -> tuple:
     """The train phase's configuration (bench_1b, remat, bf16 over fp32
     master weights, 8 x 1024 tokens from seed 0) through
     ``TorchTrainer(loop, ScalingConfig(num_workers=1))``: one worker
     actor holding the card.  Same weights, batch and kernels as the
-    train phase, so the same losses."""
+    train phase, so the same losses.  Returns (flash launches, losses)."""
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
 
     import chip_smoke as this
@@ -1424,7 +1454,7 @@ def phase_trainer(train: dict, tmp: str) -> int:
          train_step_s_median=train["step_s_median"],
          fit_s=fit_s, **final,
          flash_launches_per_step=final["flash_launches"] / TRAINER_STEPS)
-    return final["flash_launches"]
+    return final["flash_launches"], losses
 
 
 def phase_trainer_resume(tmp: str) -> int:
@@ -1479,10 +1509,11 @@ def phase_trainer_resume(tmp: str) -> int:
 
 def phase_runtime_and_trainers(train: dict) -> int:
     """The runtime phase, then on one cluster the trainer,
-    trainer_resume, pipeline, pipeline_identity and dag_channel phases,
-    with the runtime's session directories in a temporary directory;
-    returns the flash launches the trainers' workers and the pipeline
-    stages made."""
+    trainer_resume, pipeline, pipeline_identity, dag_channel, tune,
+    data_ingest and placement_group phases, with the runtime's session
+    directories in a temporary directory; returns the flash launches
+    the trainers' workers, the pipeline stages and the Tune trials
+    made."""
     import tempfile
 
     import ray_tpu_torch as rt
@@ -1492,16 +1523,226 @@ def phase_runtime_and_trainers(train: dict) -> int:
         phase_runtime(tmp)
         rt.init(object_store_memory=RUNTIME_STORE_BYTES)
         try:
-            launches = phase_trainer(train, tmp)
+            launches, trainer_losses = phase_trainer(train, tmp)
             launches += phase_trainer_resume(tmp)
             check(PIPE_RING_BYTES + DAG_RING_BYTES < RUNTIME_STORE_BYTES // 2,
                   "the object store cannot hold the pipeline's rings")
             launches += phase_pipeline(train)
             launches += phase_pipeline_identity()
             phase_dag_channel()
+            launches += phase_tune(train, trainer_losses)
+            launches += phase_data_ingest(train, tmp)
+            phase_placement_group()
         finally:
             rt.shutdown()
     return launches
+
+
+# --------------------------------------------- the libraries a trainer uses
+#
+# Tune trials are the port's TrainWorker actors on fractional GPU leases,
+# each running trainer_loop at the train phase's configuration; a
+# Dataset of token rows feeds trainer_loop through TorchTrainer; a
+# placement group reserves two half-card bundles on the one card.
+
+TUNE_LRS = (3e-4, 1e-3)      # 3e-4 is the trainer phase's AdamW rate
+TUNE_STEPS = 4
+TUNE_GPUS_PER_TRIAL = 0.5
+INGEST_STEPS = 6
+PG_RELEASE_TIMEOUT_S = 120
+
+
+def _trial_span(history: list) -> tuple:
+    """(start, end) of a trial's steps on the host's wall clock."""
+    return history[0]["at"] - history[0]["step_s"], history[-1]["at"]
+
+
+def phase_tune(train: dict, trainer_losses: list) -> int:
+    """Two bench_1b trials (remat, bf16 over fp32 master weights, the
+    seed-0 init, the train phase's 8 x 1024 batch), one per learning
+    rate, 4 steps each, through ``Tuner`` with ``max_concurrent_trials=2``
+    at ``{"GPU": 0.5}`` a trial: both on the one card at once.  Step 0
+    is the train phase's first loss (the learning rate cannot touch it);
+    the 3e-4 trial is the trainer phase's first 4 steps.  Each trial
+    counts its own flash launches.  Returns their sum."""
+    from ray_tpu_torch import tune
+
+    import chip_smoke as this
+
+    n_layers = LlamaConfig.bench_1b().n_layers
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        this.trainer_loop,
+        param_space={"learning_rate": tune.grid_search(list(TUNE_LRS)),
+                     "n_layers": n_layers, "seed": SEED,
+                     "steps": TUNE_STEPS},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=2),
+        resources_per_trial={"GPU": TUNE_GPUS_PER_TRIAL}).fit()
+    fit_s = time.perf_counter() - t0
+    trials = sorted(grid, key=lambda r: r.config["learning_rate"])
+    check(len(trials) == 2 and all(r.state == "TERMINATED" for r in trials),
+          f"tune: trials {[(r.trial_id, r.state, r.error) for r in trials]}")
+    want_launches = 2 * n_layers * TUNE_STEPS
+    rows = []
+    for r in trials:
+        hist = r.metrics_history
+        losses = [m["loss"] for m in hist]
+        last = hist[-1]
+        check(len(losses) == TUNE_STEPS and all(map(math.isfinite, losses)),
+              f"tune: {r.trial_id} losses {losses}")
+        rel0 = abs(losses[0] - train["losses"][0]) / abs(train["losses"][0])
+        check(rel0 <= TRAINER_LOSS_REL,
+              f"tune: {r.trial_id} step 0 {losses[0]} vs train "
+              f"{train['losses'][0]}")
+        check(last["cuda_visible_devices"] == "0"
+              and last["device_name"] == torch.cuda.get_device_name(0),
+              f"tune: {r.trial_id} ran on {last['cuda_visible_devices']} "
+              f"{last['device_name']}")
+        check(last["flash_launches"] == want_launches,
+              f"tune: {r.trial_id} launched flash {last['flash_launches']}"
+              f" times, not {want_launches}")
+        step_s = [m["step_s"] for m in hist]
+        rows.append({"trial_id": r.trial_id,
+                     "learning_rate": r.config["learning_rate"],
+                     "losses": losses, "loss_step0_rel": rel0,
+                     "setup_s": last["setup_s"], "step_s": step_s,
+                     "step_s_median": statistics.median(step_s[1:]),
+                     "flash_launches": last["flash_launches"],
+                     "max_memory_allocated": last["max_memory_allocated"],
+                     "cuda_visible_devices": last["cuda_visible_devices"],
+                     "device_name": last["device_name"],
+                     "span": _trial_span(hist)})
+    low = rows[0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(low["losses"], trainer_losses)]
+    check(low["learning_rate"] == TUNE_LRS[0] and max(rel) <= TRAINER_LOSS_REL,
+          f"tune: the 3e-4 trial {low['losses']} vs trainer "
+          f"{trainer_losses[:TUNE_STEPS]}")
+    best = grid.get_best_result()
+    check(best.trial_id in {r["trial_id"] for r in rows},
+          f"tune: best result {best.trial_id}")
+    (s0, e0), (s1, e1) = rows[0]["span"], rows[1]["span"]
+    overlap_s = min(e0, e1) - max(s0, s1)
+    emit("tune", config="bench_1b", remat=True, compute_dtype="bfloat16",
+         param_dtype="float32", tokens=list(TRAIN_SHAPE),
+         steps_per_trial=TUNE_STEPS, gpus_per_trial=TUNE_GPUS_PER_TRIAL,
+         max_concurrent_trials=2, fit_s=fit_s, trials=rows,
+         trainer_losses=trainer_losses[:TUNE_STEPS],
+         loss_rel_3e4_vs_trainer=rel, loss_rel_bound=TRAINER_LOSS_REL,
+         train_loss_first=train["losses"][0],
+         trials_overlap_s=overlap_s, trials_overlapped=overlap_s > 0,
+         driver_memory_reserved=torch.cuda.memory_reserved(),
+         best_trial=best.trial_id,
+         best_learning_rate=best.config["learning_rate"],
+         best_loss=best.metrics["loss"],
+         flash_launches=sum(r["flash_launches"] for r in rows))
+    return sum(r["flash_launches"] for r in rows)
+
+
+def phase_data_ingest(train: dict, tmp: str) -> int:
+    """TorchTrainer fed by a Dataset: 6 x 8 rows of 1024 int32 tokens
+    (rows 0-7 the train phase's batch, the rest from seed 1) through
+    ``data.from_numpy``; the one worker pulls each step's batch of 8
+    from its shard with ``iter_batches`` and moves it to ``cuda:0``.
+    The first loss is the train phase's.  Returns the flash launches."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    import chip_smoke as this
+
+    cfg = LlamaConfig.bench_1b()
+    rest = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, ((INGEST_STEPS - 1) * TRAIN_SHAPE[0],
+                            TRAIN_SHAPE[1])).astype(np.int32)
+    rows = np.concatenate([_train_tokens(cfg, SEED), rest])
+    ds = data.from_numpy({"tokens": rows})
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        this.trainer_loop, scaling_config=ScalingConfig(num_workers=1),
+        run_config=RunConfig(name="data_ingest", storage_path=tmp),
+        train_loop_config={"n_layers": cfg.n_layers, "seed": SEED,
+                           "steps": INGEST_STEPS, "tokens_from": "dataset"},
+        datasets={"train": ds}).fit()
+    fit_s = time.perf_counter() - t0
+    hist = result.metrics_history
+    final = result.per_worker_final[0]
+    losses = [m["loss"] for m in hist]
+    rel0 = abs(losses[0] - train["losses"][0]) / abs(train["losses"][0])
+    check(len(losses) == INGEST_STEPS and all(map(math.isfinite, losses)),
+          f"data_ingest: losses {losses}")
+    check(all(m["batch_shape"] == list(TRAIN_SHAPE) for m in hist),
+          f"data_ingest: batches {[m['batch_shape'] for m in hist]}")
+    check(rel0 <= TRAINER_LOSS_REL,
+          f"data_ingest: first loss {losses[0]} vs train "
+          f"{train['losses'][0]}")
+    check(final["flash_launches"] == 2 * cfg.n_layers * INGEST_STEPS,
+          f"data_ingest: flash launched {final['flash_launches']} times")
+    pull_s = [m["pull_s"] for m in hist]
+    step_s = [m["step_s"] for m in hist]
+    emit("data_ingest", config="bench_1b", remat=True,
+         compute_dtype="bfloat16", param_dtype="float32",
+         dataset_rows=int(rows.shape[0]), row_tokens=TRAIN_SHAPE[1],
+         dataset_blocks=ds.num_blocks(), batch_size=TRAIN_SHAPE[0],
+         losses=losses, train_loss_first=train["losses"][0],
+         loss_first_rel=rel0, loss_rel_bound=TRAINER_LOSS_REL,
+         pull_s=pull_s, pull_s_median=statistics.median(pull_s[1:]),
+         step_s=step_s, step_s_median=statistics.median(step_s[1:]),
+         fit_s=fit_s, setup_s=final["setup_s"],
+         cuda_visible_devices=final["cuda_visible_devices"],
+         flash_launches=final["flash_launches"])
+    return final["flash_launches"]
+
+
+class BundleProbe:
+    """An actor in a placement-group bundle: the cards it sees, and a
+    tensor it allocates on the first of them."""
+
+    def info(self) -> dict:
+        x = torch.full((1 << 20,), 2.0, device="cuda:0")
+        return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_count": torch.cuda.device_count(),
+                "device_name": torch.cuda.get_device_name(0),
+                "allocated_on": str(x.device), "sum": float(x.sum())}
+
+
+def phase_placement_group() -> None:
+    """Two half-card bundles STRICT_PACKed on the one card, an actor in
+    each: both see card "0" and allocate on it.  Removing the group
+    gives the shares back: a ``num_gpus=1`` actor then starts within
+    PG_RELEASE_TIMEOUT_S."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util import placement_group, remove_placement_group
+
+    import chip_smoke as this
+
+    bundles = [{"GPU": 0.5, "CPU": 1}] * 2
+    t0 = time.perf_counter()
+    pg = placement_group(bundles, strategy="STRICT_PACK").ready(timeout=60)
+    ready_s = time.perf_counter() - t0
+    probes = [rt.remote(num_gpus=0.5, num_cpus=1, placement_group=pg,
+                        placement_group_bundle_index=i)(this.BundleProbe)
+              .remote() for i in range(len(bundles))]
+    infos = rt.get([p.info.remote() for p in probes],
+                   timeout=RUNTIME_TIMEOUT_S)
+    for info in infos:
+        check(info["cuda_visible_devices"] == "0"
+              and info["device_count"] == 1
+              and info["device_name"] == torch.cuda.get_device_name(0)
+              and info["allocated_on"] == "cuda:0"
+              and info["sum"] == 2.0 * (1 << 20),
+              f"placement_group: a bundle actor saw {info}")
+    remove_placement_group(pg)
+    t0 = time.perf_counter()
+    whole = rt.remote(num_gpus=1)(this.BundleProbe).remote()
+    after = rt.get(whole.info.remote(), timeout=PG_RELEASE_TIMEOUT_S)
+    whole_s = time.perf_counter() - t0
+    rt.kill(whole)
+    check(after["cuda_visible_devices"] == "0",
+          f"placement_group: the whole-card actor saw {after}")
+    emit("placement_group", bundles=bundles, strategy="STRICT_PACK",
+         ready_s=ready_s, bundle_actors=infos,
+         whole_card_actor_after_removal_s=whole_s, whole_card_actor=after,
+         release_timeout_s=PG_RELEASE_TIMEOUT_S)
 
 
 # ------------------------------------------------------- the MPMD pipeline

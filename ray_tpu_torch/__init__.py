@@ -10,12 +10,18 @@ the continuous-batching LLM engine, served through the runtime
 (``serve``: the controller, replicas, handles and the HTTP/SSE proxy,
 with ``serve.llm_deployment`` replicas running the engine's pinned
 decode loop, disaggregated prefill among them), and training on one
-card, over a torch.distributed mesh (dp/fsdp/tp/sp, ring attention) or
-through ``train.TorchTrainer`` in GPU-pinned actors.  A fractional
-``num_gpus`` takes a share of one card.  The package imports ``torch``
-and numpy and nothing of ``ray_tpu``; where it needs a pure-Python
-module from there it keeps its own copy (``_private/runtime_copy.py``
-lists them).
+card, over a torch.distributed mesh (dp/fsdp/tp/sp, ring attention),
+through ``train.TorchTrainer`` in GPU-pinned actors or as an MPMD
+pipeline of stage actors, and PPO.  The libraries a trainer uses run on
+the same runtime: ``tune`` (trials as GPU-pinned train workers, search
+and schedulers), ``data`` (Arrow-block datasets fed to the trainers),
+``util`` (placement groups, the actor pool, queues, host collectives,
+the state API) and ``cluster_utils``.  A fractional ``num_gpus`` takes a
+share of one card.  The package imports ``torch`` and numpy and nothing
+of ``ray_tpu``; where it needs a pure-Python module from there it keeps
+its own copy (``_private/runtime_copy.py`` lists them).  The
+cluster-operations libraries (the autoscaler, workflows, pub/sub, job
+submission, the CLI and the dashboard) come with a later slice.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 with no GPU and no explicit ``"cpu"`` they raise instead of quietly

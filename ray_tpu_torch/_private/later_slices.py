@@ -1,12 +1,13 @@
 """Modules of ray_tpu that later slices of the port bring.
 
-The copied runtime keeps ray_tpu's lazy imports pointed at the port's
-own paths (``ray_tpu_torch.util.collective``, ...).
-None of them is reached on the runtime's or the trainer's path.  Until
-its slice lands, importing one raises an ImportError that names the
-slice, instead of a bare "No module named ...".  The finder sits at the
-END of ``sys.meta_path``, so it is asked only about modules no other
-finder found.
+The copied runtime and libraries keep ray_tpu's lazy imports pointed at
+the port's own paths (``ray_tpu_torch.autoscaler`` from
+``cluster_utils.AutoscalingCluster``, ``ray_tpu_torch._private.dashboard``
+from the head, ...).  None of them is reached on the runtime's, the
+trainer's or the tuner's path.  Until its slice lands, importing one
+raises an ImportError that names the slice, instead of a bare "No module
+named ...".  The finder sits at the END of ``sys.meta_path``, so it is
+asked only about modules no other finder found.
 """
 
 from __future__ import annotations
@@ -15,12 +16,15 @@ import importlib.abc
 import sys
 from typing import Dict
 
-LIBRARIES = "the pure-Python libraries still to copy (ROADMAP A5)"
+CLUSTER_OPERATIONS = "the cluster-operations libraries (ROADMAP A5)"
 
 LATER: Dict[str, str] = {
-    "ray_tpu_torch.util.collective": LIBRARIES,
-    "ray_tpu_torch.util.state": LIBRARIES,
-    "ray_tpu_torch._private.dashboard": LIBRARIES,
+    "ray_tpu_torch.autoscaler": CLUSTER_OPERATIONS,
+    "ray_tpu_torch.workflow": CLUSTER_OPERATIONS,
+    "ray_tpu_torch.experimental.pubsub": CLUSTER_OPERATIONS,
+    "ray_tpu_torch.job_submission": CLUSTER_OPERATIONS,
+    "ray_tpu_torch.scripts": CLUSTER_OPERATIONS,
+    "ray_tpu_torch._private.dashboard": CLUSTER_OPERATIONS,
 }
 
 

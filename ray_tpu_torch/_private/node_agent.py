@@ -3,7 +3,10 @@
 Ported from ray_tpu's node agent: the concrete accelerators behind the
 fungible count are GPUs (``gpu_ids``, entries of the agent's own
 CUDA_VISIBLE_DEVICES list) instead of TPU chips, and a fractional GPU
-demand takes a share of one card (:class:`GpuShares`).
+demand takes a share of one card (:class:`GpuShares`).  A placement-group
+bundle carves its cards' shares out when it is reserved, and the leases
+inside it draw from that carve-out, as upstream Ray pins a bundle's GPU
+ids at reservation.
 
 Equivalent role to the reference's raylet
 (reference: src/ray/raylet/node_manager.h:125, worker_pool.h:104,
@@ -108,12 +111,24 @@ class GpuShares:
     fractions can leave every card short of a remainder (0.6 and 0.6 on
     two cards, then 0.8), and then it takes the card with the most
     share left, which is over-committed until a share comes back.  The
-    shares go back with the lease."""
+    shares go back with the lease.
+
+    A placement-group bundle's pool is built by :meth:`carved` from
+    what the bundle took of the node's pool: only those cards, and only
+    the shares taken of each."""
 
     UNITS = 10000
 
     def __init__(self, card_ids: List[str]):
         self._free: Dict[str, int] = {c: self.UNITS for c in card_ids}
+        self.total: Dict[str, int] = dict(self._free)
+
+    @classmethod
+    def carved(cls, taken: Dict[str, int]) -> "GpuShares":
+        pool = cls([])
+        pool._free = dict(taken)
+        pool.total = dict(taken)
+        return pool
 
     def take(self, n: float) -> Dict[str, int]:
         """Claim ``n`` cards' worth; returns {card id: units}, in card
@@ -140,7 +155,7 @@ class GpuShares:
     def give_back(self, taken: Dict[str, int]) -> None:
         for card, amount in taken.items():
             if card in self._free:
-                self._free[card] = min(self.UNITS,
+                self._free[card] = min(self.total[card],
                                        self._free[card] + amount)
 
 
@@ -251,6 +266,9 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         # LocalScheduler over the reserved resources (reference:
         # src/ray/raylet/placement_group_resource_manager.h)
         self._bundles: Dict[str, LocalScheduler] = {}
+        # and the GPU shares each such bundle carved out of _gpu_shares
+        # when it was reserved; its leases draw from these
+        self._bundle_gpus: Dict[str, GpuShares] = {}
         self.cluster_view: Dict[str, Any] = {}
         self._cluster_view_version = -1
         # sharded-object-directory replica (object_directory.py): shard
@@ -1464,7 +1482,7 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         if w.lease_id is not None:
             lease = self._leases.pop(w.lease_id, None)
             if lease is not None:
-                self._gpu_shares.give_back(lease.gpu_shares)
+                self._lease_gpus(lease).give_back(lease.gpu_shares)
                 self._release_lease_resources(lease)
         self.store.release_client(worker_id)
         if self._head is not None:
@@ -1635,7 +1653,7 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
             return {"ok": True, "already": True}
         demand = ResourceSet(resources)
         if self.local.try_acquire(demand):
-            self._bundles[key] = LocalScheduler(NodeResources(demand))
+            self._add_bundle(key, demand)
             return {"ok": True}
         if wait_ms <= 0 or not self.resources.is_feasible(demand):
             return {"ok": False, "error": "insufficient resources"}
@@ -1652,8 +1670,18 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
             for tok in self.local.release(demand):
                 self._grant_token(tok)
             return {"ok": False, "error": "caller disconnected"}
-        self._bundles[key] = LocalScheduler(NodeResources(demand))
+        self._add_bundle(key, demand)
         return {"ok": True}
+
+    def _add_bundle(self, key: str, demand: ResourceSet) -> None:
+        """Hold ``demand``, already acquired from the node pool, as the
+        bundle ``key``: its cards' shares are taken now, so every lease
+        of the bundle lands on the bundle's own cards."""
+        self._bundles[key] = LocalScheduler(NodeResources(demand))
+        n_gpu = demand.to_dict().get(GPU_RESOURCE, 0)
+        if n_gpu > 0:
+            self._bundle_gpus[key] = GpuShares.carved(
+                self._gpu_shares.take(n_gpu))
 
     async def rpc_reserve_bundles(self, pg_id: str, items: List[List[Any]],
                                   wait_ms: int = 0, _conn=None):
@@ -1705,6 +1733,11 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         sched = self._bundles.pop(key, None)
         if sched is None:
             return {"ok": False}
+        gpus = self._bundle_gpus.pop(key, None)
+        if gpus is not None:
+            # the whole carve-out, the shares of the leases killed below
+            # among it
+            self._gpu_shares.give_back(gpus.total)
         # wake queued lease requests; they re-check and see the bundle gone
         for token in sched.cancel_all():
             self._grant_token(token)
@@ -2198,7 +2231,7 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
                        if ts is not None else "")
         n_gpu = demand.to_dict().get(GPU_RESOURCE, 0)
         if n_gpu > 0:
-            lease.gpu_shares = self._gpu_shares.take(n_gpu)
+            lease.gpu_shares = self._lease_gpus(lease).take(n_gpu)
             lease.gpu_ids = list(lease.gpu_shares)
         worker.lease_id = lease_id
         self._leases[lease_id] = lease
@@ -2294,6 +2327,15 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
             return w
         return None
 
+    def _lease_gpus(self, lease: _Lease) -> GpuShares:
+        """The pool a lease's GPU shares come from and go back to: its
+        bundle's carve-out, or the node's.  A lease of a bundle already
+        returned gets an empty pool: the carve-out went back whole."""
+        if lease.bundle_key:
+            return self._bundle_gpus.get(lease.bundle_key,
+                                         GpuShares.carved({}))
+        return self._gpu_shares
+
     def _lease_sched(self, lease: _Lease) -> LocalScheduler:
         if lease.bundle_key:
             sched = self._bundles.get(lease.bundle_key)
@@ -2308,7 +2350,7 @@ class NodeAgent(IntrospectionRpcMixin, RpcHost):
         lease = self._leases.pop(lease_id, None)
         if lease is None:
             return {"ok": False}
-        self._gpu_shares.give_back(lease.gpu_shares)
+        self._lease_gpus(lease).give_back(lease.gpu_shares)
         w = lease.worker
         w.lease_id = None
         if kill_worker or w.proc.poll() is not None:

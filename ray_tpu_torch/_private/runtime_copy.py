@@ -61,6 +61,23 @@ COPIED: List[str] = [
     "dag/compiled.py",
     "dag/channel.py",
     "dag/execution.py",
+    "util/__init__.py",
+    "util/metrics.py",
+    "util/actor_pool.py",
+    "util/queue.py",
+    "util/multiprocessing.py",
+    "util/collective.py",
+    "util/state/__init__.py",
+    "util/state/api.py",
+    "cluster_utils.py",
+    "data/__init__.py",
+    "data/logical.py",
+    "data/block.py",
+    "data/dataset.py",
+    "tune/__init__.py",
+    "tune/search.py",
+    "tune/schedulers.py",
+    "tune/tuner.py",
 ]
 
 PORTED: Dict[str, str] = {
@@ -76,7 +93,8 @@ PORTED: Dict[str, str] = {
         "no JAX site hook",
     "_private/node_agent.py":
         "assigns GPU indices (gpu_ids) behind the fungible GPU count; a "
-        "fractional demand takes a share of one card",
+        "fractional demand takes a share of one card; a placement-group "
+        "bundle carves its cards' shares out when it is reserved",
     "_private/head.py":
         "forwards a lease's gpu_ids with an actor's creation push",
     "_private/worker.py":
@@ -95,6 +113,9 @@ PORTED: Dict[str, str] = {
         "each stage is an nn.Module on its leased card (num_gpus per "
         "stage, or device='cpu'); backward re-runs the stage forward "
         "under autograd; snapshots hold CPU tensors by parameter name",
+    "util/placement_group.py":
+        "tpu_slice_bundles goes: its TPU-{type}-head bundle has no GPU "
+        "meaning; a GPU host's bundle is a plain {\"GPU\": n, \"CPU\": c}",
 }
 
 _MODULE_PATH = re.compile(r"\bray_tpu(?=\.[A-Za-z_])")

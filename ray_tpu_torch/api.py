@@ -2,8 +2,8 @@
 
 Ported from ray_tpu's API: ``num_gpus=`` reserves the ``"GPU"``
 resource, which the node agent pins to concrete cards per lease;
-``num_tpus=`` is gone.  ``bind()`` needs the compiled-graph package,
-which a later slice brings.
+``num_tpus=`` is gone.  ``bind()`` builds a graph of the compiled-graph
+package (``dag/``).
 
 Equivalent of the reference's driver API surface
 (reference: python/ray/_private/worker.py — ray.init :1217, ray.get

@@ -1,10 +1,11 @@
-"""ray_tpu_torch.util: scheduling strategies (copied from ray_tpu.util).
+"""ray_tpu_torch.util: placement groups, collectives, and cluster utilities."""
 
-The rest of ray_tpu.util (placement groups, the actor pool, host
-collectives, the state API) comes with a later slice of the port.
-"""
-
+from ray_tpu_torch.util.actor_pool import ActorPool
+from ray_tpu_torch.util.placement_group import (PlacementGroup, placement_group,
+                                          remove_placement_group)
 from ray_tpu_torch.util.scheduling_strategies import (
     NodeAffinitySchedulingStrategy, NodeLabelSchedulingStrategy)
 
-__all__ = ["NodeAffinitySchedulingStrategy", "NodeLabelSchedulingStrategy"]
+__all__ = ["ActorPool", "PlacementGroup", "placement_group",
+           "remove_placement_group", "NodeAffinitySchedulingStrategy",
+           "NodeLabelSchedulingStrategy"]

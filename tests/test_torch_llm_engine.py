@@ -390,13 +390,16 @@ def test_save_restore_resumes_generation():
 
 def _exceeded(where):
     """ray_tpu_deadline_exceeded_total{where=...} as the metrics registry
-    renders it."""
+    renders it, summed over its other labels: a port cluster that ran
+    earlier in this process leaves its worker_id on the registry's
+    default tags, so the series may carry that label too."""
     from ray_tpu_torch._private.metrics import deadline_metrics
 
-    prefix = f'ray_tpu_deadline_exceeded_total{{where="{where}"}} '
-    return next((float(line[len(prefix):]) for line in
-                 deadline_metrics().render() if line.startswith(prefix)),
-                0.0)
+    label = f'where="{where}"'
+    return sum(float(line.rsplit(" ", 1)[1]) for line in
+               deadline_metrics().render()
+               if line.startswith("ray_tpu_deadline_exceeded_total{")
+               and label in line)
 
 
 def test_deadline_admission_and_expiry():

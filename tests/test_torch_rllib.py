@@ -225,3 +225,27 @@ def test_ppo_learns_cartpole(cluster):
         assert bounded(lambda: algo.evaluate(num_episodes=5), 120) > 400
     finally:
         algo.stop()
+
+
+def test_ppo_under_tuner(cluster):
+    """Port of test_rllib.py:104: PPO as a Tune trainable, metrics
+    reported per iteration, the learner on the CPU."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.tune import TuneConfig, Tuner
+
+    base = (PPOConfig()
+            .env_runners(num_env_runners=1, num_envs_per_env_runner=4,
+                         rollout_fragment_length=64)
+            .learners(device="cpu")
+            .debugging(seed=0))
+    tuner = Tuner(
+        base.to_trainable(max_iterations=3),
+        param_space={"lr": 1e-3},
+        tune_config=TuneConfig(metric="episode_return_mean", mode="max",
+                               num_samples=1))
+    grid = bounded(tuner.fit, 240, "Tuner.fit()")
+    best = grid.get_best_result()
+    assert best.state == "TERMINATED"
+    assert best.metrics.get("training_iteration", 0) >= 3
+    assert "episode_return_mean" in best.metrics
+    assert best.config["lr"] == 1e-3

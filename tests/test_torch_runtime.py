@@ -39,22 +39,34 @@ def test_copied_module_equals_its_source_after_the_rename(rel):
 
 
 def test_every_runtime_module_is_copied_or_ported_by_name():
-    """Every module of ray_tpu's runtime that the port has is listed:
-    copied verbatim or ported with a reason.  A ported module differs
-    from its copy (else it belongs in COPIED)."""
+    """Every module of ray_tpu's runtime and libraries that the port has
+    is listed: copied verbatim or ported with a reason.  A ported module
+    differs from its copy (else it belongs in COPIED)."""
     assert not set(runtime_copy.COPIED) & set(runtime_copy.PORTED)
     runtime = [p.relative_to(PORT).as_posix()
-               for d in ("_private", "_native", "util")
+               for d in ("_private", "_native", "util", "util/state",
+                         "data", "tune")
                for p in (PORT / d).iterdir()
-               if p.suffix in (".py", ".c") and p.name != "__init__.py"
+               if p.suffix in (".py", ".c") and p.read_text().strip()
                and (SRC / d / p.name).exists()]
-    runtime += ["api.py", "_native/__init__.py", "train/session.py"]
+    runtime += ["api.py", "cluster_utils.py", "train/session.py"]
+    for rel in ("util/state/__init__.py", "data/dataset.py",
+                "tune/tuner.py", "cluster_utils.py"):
+        assert rel in runtime, rel
     listed = set(runtime_copy.COPIED) | set(runtime_copy.PORTED)
     assert sorted(set(runtime) - listed) == []
     for rel, why in runtime_copy.PORTED.items():
         assert why and (PORT / rel).exists(), rel
         assert (PORT / rel).read_text() != \
             runtime_copy.rename((SRC / rel).read_text()), rel
+
+
+def test_placement_group_module_is_its_copy_without_tpu_slice_bundles():
+    copy = runtime_copy.rename(
+        (SRC / "util/placement_group.py").read_text())
+    cut = copy.index("\n\ndef tpu_slice_bundles(")
+    assert (PORT / "util/placement_group.py").read_text() == \
+        copy[:cut] + "\n"
 
 
 def test_rename_touches_module_paths_only():
