@@ -53,8 +53,20 @@ paged launches counted inside it); 2 layers in fp32 through a replica,
 bit for bit against the in-process engine; and disaggregated prefill,
 a prefill and a decode replica at ``num_gpus=0.5`` each on the one
 card, a 1000-token prompt's KV pack timed through the object store,
-then in fp32 at 2 layers against one replica's tokens.  Each phase
-prints one JSON line; a failed check raises, so the script exits
+then in fp32 at 2 layers against one replica's tokens.  Last, the
+cluster-operations libraries: a cluster started with the CLI
+(``python -m ray_tpu_torch.scripts start --head``) runs bench_1b whole
+for 3 steps in a submitted job's entrypoint process (the train phase's
+losses bit for bit), stops a job that holds the card, after which a
+``num_gpus=1`` actor gets it, serves its dashboard (``/metrics``,
+``/api/state`` showing the held card) and runs a workflow of two
+``num_gpus=1`` steps at bench_1b's widths with 4 layers (train and
+checkpoint; restore and train), whose second step fails once: ``resume``
+reruns it alone and the four losses equal an uninterrupted run's bit for
+bit; then an autoscaler whose head advertises no card launches a
+``{"GPU": 1}`` node for a pending actor, which trains bench_1b 3 steps
+on card "0" (the train phase's losses again), and terminates the node
+once it is idle.  Each phase prints one JSON line; a failed check raises, so the script exits
 non-zero.  The last lines are the card's name and power limit (from
 nvidia-smi), then {"ok": true, "device": {...}}.
 
@@ -97,6 +109,7 @@ PEAK_FLOPS_PER_S = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
 # and rtol allows two.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-3, 2 ** -6)}
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(phase: str, **fields) -> None:
@@ -1694,8 +1707,9 @@ def phase_data_ingest(train: dict, tmp: str) -> int:
 
 
 class BundleProbe:
-    """An actor in a placement-group bundle: the cards it sees, and a
-    tensor it allocates on the first of them."""
+    """An actor on a GPU lease (in a placement-group bundle, or holding
+    the card after a job): the cards it sees, and a tensor it allocates
+    on the first of them."""
 
     def info(self) -> dict:
         x = torch.full((1 << 20,), 2.0, device="cuda:0")
@@ -2366,6 +2380,522 @@ def phase_serving(inprocess: dict) -> int:
     return launches
 
 
+# ------------------------------------------ the cluster-operations libraries
+#
+# A cluster started from the shell (``python -m ray_tpu_torch.scripts
+# start --head``) runs bench_1b in a submitted job's entrypoint process,
+# stops a job that holds the card and gives the card to an actor, serves
+# its dashboard, and runs a workflow of two GPU steps that checkpoints
+# between them; an autoscaler launches a GPU node for a pending actor and
+# terminates it once idle.  Every train step here is the train phase's
+# (bench_1b, remat, bf16 over fp32 master weights, the seed-0 init and
+# 8 x 1024 batch, a one-device mesh) in a process of its own, so its
+# losses are the train phase's bit for bit; each process counts its own
+# flash launches and reports them.
+
+OPS_STEPS = 3                # job A's and the autoscaled actor's steps
+OPS_TIMEOUT_S = 600
+SPIN_BYTES = 16 << 30        # what job B holds on the card until stopped
+WORKFLOW_LAYERS = 4          # a 20-layer checkpoint with AdamW's state
+WORKFLOW_HALF_STEPS = 2      # is ~7.2 GB a write; 4 layers ~2.4 GB
+AUTOSCALE_IDLE_S = 5.0
+
+
+def train_steps(n_layers: int, steps: int, save_to: str = "",
+                restore_from: str = "") -> dict:
+    """``steps`` train steps of bench_1b at ``n_layers`` on this
+    process's card, from the seed-0 init or from the checkpoint at
+    ``restore_from`` (weights, AdamW's moments and step count); saves the
+    state after the last step to ``save_to``.  Raises when the process
+    sees no card: nothing here falls back to the CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.parallel import shard_batch
+    from ray_tpu_torch.train import restore_checkpoint, save_checkpoint
+
+    check(torch.cuda.is_available(),
+          "train_steps: no card visible to this process "
+          f"(CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')!r})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LlamaConfig.bench_1b(), remat=True,
+                              n_layers=n_layers)
+    mesh, params, opt, step_fn = _train_state(cfg, SEED)
+    tokens = shard_batch(mesh, _train_tokens(cfg, SEED))
+    restore_s = 0.0
+    if restore_from:
+        t1 = time.perf_counter()
+        state = restore_checkpoint(restore_from)
+        params.load_state_dict(state["model"])
+        opt.load_state_dict(state["opt"])
+        restore_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    fa.LAUNCHES = 0
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, tokens)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    out = {"losses": losses, "step_s": step_s, "setup_s": setup_s,
+           "restore_s": restore_s, "flash_launches": fa.LAUNCHES,
+           "pid": os.getpid(),
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "device_name": torch.cuda.get_device_name(0)}
+    if save_to:
+        t0 = time.perf_counter()
+        save_checkpoint(save_to, {"model": params.state_dict(),
+                                  "opt": opt.state_dict(), "step": steps})
+        out.update(path=save_to, save_s=time.perf_counter() - t0,
+                   checkpoint_bytes=sum(
+                       os.path.getsize(os.path.join(save_to, f))
+                       for f in os.listdir(save_to)))
+    del params, opt, step_fn, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def job_train() -> None:
+    """Job A's entrypoint: bench_1b whole, OPS_STEPS steps on the card in
+    this process; one line ``job_train {...}`` in the job's logs."""
+    out = train_steps(LlamaConfig.bench_1b().n_layers, OPS_STEPS)
+    print("job_train " + json.dumps(out), flush=True)
+
+
+def job_spin() -> None:
+    """Job B's entrypoint: holds SPIN_BYTES on the card and multiplies
+    on it until the job is stopped."""
+    check(torch.cuda.is_available(), "job_spin: no card visible")
+    held = torch.empty(SPIN_BYTES, dtype=torch.uint8, device="cuda")
+    x = torch.randn(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    print(f"job_spin pid={os.getpid()} holds {held.numel()} bytes",
+          flush=True)
+    while True:
+        x = torch.tanh(x @ x)
+        torch.cuda.synchronize()
+
+
+class CardTrainer:
+    """An actor on a GPU lease that trains on its card."""
+
+    def visible(self) -> str:
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def train(self, n_layers: int, steps: int) -> dict:
+        return train_steps(n_layers, steps)
+
+
+def workflow_first_half(ckpt: str, counter: str) -> dict:
+    """Workflow step 1: WORKFLOW_HALF_STEPS steps from the init, then a
+    checkpoint; marks ``counter`` once per run."""
+    with open(counter, "a") as f:
+        f.write("x")
+    return train_steps(WORKFLOW_LAYERS, WORKFLOW_HALF_STEPS, save_to=ckpt)
+
+
+def workflow_second_half(first: dict, flag: str) -> dict:
+    """Workflow step 2: fails on its first attempt (``flag`` absent),
+    else restores step 1's checkpoint and takes WORKFLOW_HALF_STEPS
+    more steps.  Returns step 1's result as it was handed in beside its
+    own."""
+    if not os.path.exists(flag):
+        open(flag, "w").close()
+        raise RuntimeError("workflow: step 2's first attempt fails")
+    return {"first": first,
+            "second": train_steps(WORKFLOW_LAYERS, WORKFLOW_HALF_STEPS,
+                                  restore_from=first["path"])}
+
+
+def _cli(*args, timeout: float = 120) -> subprocess.CompletedProcess:
+    """``python -m ray_tpu_torch.scripts *args`` from the checkout's root
+    (the ``rtpu-torch`` CLI), under this process's RT_TMPDIR."""
+    return subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+
+
+def _cli_ok(*args, timeout: float = 120) -> str:
+    r = _cli(*args, timeout=timeout)
+    check(r.returncode == 0,
+          f"rtpu-torch {' '.join(args)}: rc {r.returncode}\n{r.stdout}\n"
+          f"{r.stderr}")
+    return r.stdout
+
+
+def _job_status(job_id: str) -> str:
+    return json.loads(_cli_ok("job", "status", job_id))["status"]
+
+
+def _poll(what: str, fn, timeout: float, period: float = 0.1):
+    """Call ``fn`` until it returns something true; that value."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"{what}: not within {timeout} s")
+        time.sleep(period)
+
+
+def phase_cli_jobs(train: dict):
+    """Job A runs bench_1b whole in its entrypoint process (its losses
+    are the train phase's first OPS_STEPS bit for bit); job B holds the
+    card until ``job stop``, after which a ``num_gpus=1`` actor gets it.
+    Returns (flash launches, the actor, which still holds the card)."""
+    import ray_tpu_torch as rt
+
+    import chip_smoke as this
+
+    status = _cli_ok("status")
+    check("1 node(s)" in status and "'GPU': 1.0" in status,
+          f"cli_jobs: status shows\n{status}")
+    entry = [sys.executable, "-c"]
+    t0 = time.perf_counter()
+    r = _cli("job", "submit", "--wait", "--working-dir", ROOT, "--", *entry,
+             "'import chip_smoke; chip_smoke.job_train()'",
+             timeout=OPS_TIMEOUT_S)
+    submit_to_succeeded_s = time.perf_counter() - t0
+    check(r.returncode == 0 and "SUCCEEDED" in r.stdout,
+          f"cli_jobs: job A ended rc {r.returncode}\n{r.stdout[-4000:]}\n"
+          f"{r.stderr[-2000:]}")
+    lines = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("job_train ")]
+    check(len(lines) == 1, f"cli_jobs: job A's logs\n{r.stdout[-4000:]}")
+    job_a = json.loads(lines[0][len("job_train "):])
+    want = train["losses"][:OPS_STEPS]
+    check(job_a["losses"] == want,
+          f"cli_jobs: job A's losses {job_a['losses']} vs train {want}")
+    n_layers = LlamaConfig.bench_1b().n_layers
+    check(job_a["flash_launches"] == 2 * n_layers * OPS_STEPS,
+          f"cli_jobs: job A launched flash {job_a['flash_launches']} times")
+    check(job_a["cuda_visible_devices"]
+          == os.environ.get("CUDA_VISIBLE_DEVICES"),
+          f"cli_jobs: the entrypoint saw {job_a['cuda_visible_devices']!r},"
+          f" its node {os.environ.get('CUDA_VISIBLE_DEVICES')!r}")
+
+    out = _cli_ok("job", "submit", "--working-dir", ROOT, "--", *entry,
+                  "'import chip_smoke; chip_smoke.job_spin()'")
+    job_b = out.split("submitted ", 1)[1].split()[0]
+
+    def spinning() -> bool:
+        status = _job_status(job_b)
+        check(status == "RUNNING", f"cli_jobs: job B is {status}\n"
+              + _cli_ok("job", "logs", job_b)[-4000:])
+        return "job_spin pid=" in _cli_ok("job", "logs", job_b)
+
+    _poll("cli_jobs: job B holding the card", spinning, OPS_TIMEOUT_S,
+          period=0.5)
+    free_during = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    _cli_ok("job", "stop", job_b)
+    _poll("cli_jobs: job B STOPPED",
+          lambda: _job_status(job_b) == "STOPPED", 120, period=0.2)
+    stop_to_stopped_s = time.perf_counter() - t0
+    _poll("cli_jobs: job B's memory released",
+          lambda: torch.cuda.mem_get_info()[0]
+          >= free_during + 0.9 * SPIN_BYTES, 120)
+    stop_to_memory_free_s = time.perf_counter() - t0
+    holder = rt.remote(num_gpus=1)(this.BundleProbe).remote()
+    got = rt.get(holder.info.remote(), timeout=RUNTIME_TIMEOUT_S)
+    stop_to_card_s = time.perf_counter() - t0
+    check(got["cuda_visible_devices"] == "0"
+          and got["allocated_on"] == "cuda:0"
+          and got["sum"] == 2.0 * (1 << 20),
+          f"cli_jobs: the actor after job B saw {got}")
+    emit("cli_jobs", cluster="python -m ray_tpu_torch.scripts start --head",
+         status=status.splitlines()[:2], config="bench_1b",
+         job_a_steps=OPS_STEPS, job_a_losses=job_a["losses"],
+         train_losses=want, bitwise=True,
+         job_a_submit_to_succeeded_s=submit_to_succeeded_s,
+         job_a_setup_s=job_a["setup_s"], job_a_step_s=job_a["step_s"],
+         job_a_first_step_s=job_a["step_s"][0],
+         job_a_cuda_visible_devices=job_a["cuda_visible_devices"],
+         job_a_device_name=job_a["device_name"],
+         job_a_flash_launches=job_a["flash_launches"],
+         job_b_held_bytes=SPIN_BYTES, job_b_stop_to_stopped_s=stop_to_stopped_s,
+         job_b_stop_to_memory_free_s=stop_to_memory_free_s,
+         job_b_stop_to_card_actor_s=stop_to_card_s, card_actor=got)
+    return job_a["flash_launches"], holder
+
+
+def _prometheus_samples(text: str) -> int:
+    """The number of samples in Prometheus exposition text; fails on a
+    line that is neither a sample, a comment nor blank."""
+    import re
+
+    sample = re.compile(r"^[A-Za-z_:][A-Za-z0-9_:]*(\{[^}]*\})? (\S+)$")
+    n = 0
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            m = sample.match(ln)
+            check(m is not None, f"dashboard: not Prometheus text: {ln!r}")
+            float(m.group(2))
+            n += 1
+    return n
+
+
+def phase_dashboard(holder) -> None:
+    """The head's dashboard on the CLI's cluster, while ``holder`` holds
+    the card: a non-zero metrics port, the app, Prometheus text, and the
+    node's GPU in ``/api/state``, 1 in total and 0 available; after the
+    holder is killed, 1 available again."""
+    import urllib.request
+
+    import ray_tpu_torch as rt
+
+    port = rt.api._worker().head.call("metrics_port")["port"]
+    check(port > 0, "dashboard: the head serves no metrics port")
+
+    def get(path: str):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as resp:
+            body = resp.read()
+            kind = resp.headers.get("Content-Type", "")
+        return kind, body, time.perf_counter() - t0
+
+    def gpus():
+        node = json.loads(get("/api/state")[1])["nodes"][0]["resources"]
+        # a resource with nothing left drops out of "available"
+        return node["total"].get("GPU"), node["available"].get("GPU", 0.0)
+
+    latency = {}
+    kind, html, latency["/"] = get("/")
+    check(kind.startswith("text/html") and b"ray_tpu cluster" in html
+          and b'<script src="/app.js">' in html, "dashboard: / is not the app")
+    kind, js, latency["/app.js"] = get("/app.js")
+    check(kind.startswith("application/javascript")
+          and b"api/snapshot" in js, "dashboard: /app.js")
+    _, text, latency["/metrics"] = get("/metrics")
+    samples = _prometheus_samples(text.decode())
+    check(samples > 0, "dashboard: /metrics has no samples")
+    _, state, latency["/api/state"] = get("/api/state")
+    nodes = json.loads(state)["nodes"]
+    _poll("dashboard: the held card in /api/state",
+          lambda: gpus() == (1.0, 0.0), 30)
+    rt.kill(holder)
+    t0 = time.perf_counter()
+    _poll("dashboard: the card back in /api/state",
+          lambda: gpus() == (1.0, 1.0), 60)
+    release_s = time.perf_counter() - t0
+    emit("dashboard", metrics_port=port, get_s=latency,
+         metrics_samples=samples, nodes=len(nodes),
+         gpu_total_available_while_held=[1.0, 0.0],
+         kill_to_card_available_s=release_s)
+
+
+def phase_workflow(train_4: dict, tmp: str) -> int:
+    """Two ``num_gpus=1`` steps at bench_1b's widths with WORKFLOW_LAYERS
+    layers: step 1 trains and checkpoints, step 2 fails once; ``run``
+    ends FAILED, ``resume`` reruns step 2 alone from step 1's stored
+    result, and the four losses are ``train_4``'s, an uninterrupted run
+    in the driver, bit for bit.  Returns the steps' flash launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+
+    import chip_smoke as this
+
+    workflow.init(os.path.join(tmp, "workflows"))
+    counter, flag = (os.path.join(tmp, n) for n in ("first_runs", "failed"))
+    step = rt.remote(num_gpus=1, max_retries=0)
+    dag = step(this.workflow_second_half).bind(
+        step(this.workflow_first_half).bind(os.path.join(tmp, "wf_ckpt"),
+                                            counter), flag)
+    t0 = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="bench_1b_halves")
+        failed = False
+    except rt.RayError:
+        failed = True
+    run_s = time.perf_counter() - t0
+    check(failed and workflow.get_status("bench_1b_halves") == "FAILED",
+          "workflow: run did not fail on step 2's first attempt")
+    t0 = time.perf_counter()
+    out = workflow.resume("bench_1b_halves")
+    resume_s = time.perf_counter() - t0
+    check(workflow.get_status("bench_1b_halves") == "SUCCEEDED",
+          "workflow: not SUCCEEDED after resume")
+    check(open(counter).read() == "x", "workflow: step 1 ran again")
+    # step 1's result as resume read it back from storage
+    first, second = out["first"], out["second"]
+    losses = first["losses"] + second["losses"]
+    check(losses == train_4["losses"],
+          f"workflow: losses {losses} vs uninterrupted {train_4['losses']}")
+    want = 2 * WORKFLOW_LAYERS * WORKFLOW_HALF_STEPS
+    check(first["flash_launches"] == want
+          and second["flash_launches"] == want,
+          f"workflow: flash launched {first['flash_launches']} and "
+          f"{second['flash_launches']} times")
+    check(first["cuda_visible_devices"] == "0"
+          and second["cuda_visible_devices"] == "0",
+          "workflow: a step did not see card 0")
+    emit("workflow", config=f"bench_1b widths, {WORKFLOW_LAYERS} layers",
+         steps_per_half=WORKFLOW_HALF_STEPS, losses=losses,
+         uninterrupted_losses=train_4["losses"], bitwise=True,
+         run_until_failed_s=run_s, resume_s=resume_s,
+         first_step_runs=1, checkpoint_bytes=first["checkpoint_bytes"],
+         checkpoint_write_s=first["save_s"],
+         checkpoint_restore_s=second["restore_s"],
+         step_setup_s=[first["setup_s"], second["setup_s"]],
+         step_s=first["step_s"] + second["step_s"],
+         step_pids=[first["pid"], second["pid"]],
+         flash_launches=first["flash_launches"] + second["flash_launches"],
+         driver_flash_launches=train_4["flash_launches"])
+    return first["flash_launches"] + second["flash_launches"]
+
+
+def phase_autoscaler(train: dict, tmp: str) -> int:
+    """A head that advertises no card and an autoscaler over the fake
+    provider, whose ``gpu-worker`` type owns the card: a pending
+    ``num_gpus=1`` actor makes it launch that node; the actor sees card
+    "0" and trains bench_1b OPS_STEPS steps, the train phase's losses
+    bit for bit; once the actor is killed the node drains and is
+    terminated.  Returns the actor's flash launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import AutoscalingCluster
+
+    import chip_smoke as this
+
+    os.environ["RT_TMPDIR"] = tmp
+    cluster = AutoscalingCluster(
+        head_resources={"CPU": 2, "GPU": 0},
+        worker_node_types={"gpu-worker": {
+            "resources": {"CPU": 2, "GPU": 1}, "min_workers": 0,
+            "max_workers": 1}},
+        idle_timeout_s=AUTOSCALE_IDLE_S, update_period_s=0.3)
+    try:
+        rt.init(address=cluster.address)
+        try:
+            check(rt.cluster_resources().get("GPU", 0) == 0,
+                  "autoscaler: the head advertises a card")
+            t0 = time.perf_counter()
+            actor = rt.remote(num_gpus=1)(this.CardTrainer).remote()
+            _poll("autoscaler: gpu-worker registered",
+                  lambda: len(rt.nodes()) == 2, OPS_TIMEOUT_S)
+            registered_s = time.perf_counter() - t0
+            visible = rt.get(actor.visible.remote(), timeout=OPS_TIMEOUT_S)
+            first_reply_s = time.perf_counter() - t0
+            check(visible == "0", f"autoscaler: the actor sees {visible!r}")
+            n_layers = LlamaConfig.bench_1b().n_layers
+            got = rt.get(actor.train.remote(n_layers, OPS_STEPS),
+                         timeout=OPS_TIMEOUT_S)
+            want = train["losses"][:OPS_STEPS]
+            check(got["losses"] == want,
+                  f"autoscaler: losses {got['losses']} vs train {want}")
+            check(got["flash_launches"] == 2 * n_layers * OPS_STEPS,
+                  f"autoscaler: flash launched {got['flash_launches']} "
+                  "times")
+            types = [n.node_type
+                     for n in cluster.provider.non_terminated_nodes()]
+            check(types == ["gpu-worker"], f"autoscaler: nodes {types}")
+            rt.kill(actor)
+            t0 = time.perf_counter()
+            _poll("autoscaler: the idle gpu-worker terminated",
+                  lambda: not cluster.provider.non_terminated_nodes(),
+                  OPS_TIMEOUT_S)
+            terminated_s = time.perf_counter() - t0
+            _poll("autoscaler: the scale-down recorded",
+                  lambda: cluster.status()["scale_down_total"], 60)
+            status = cluster.status()
+        finally:
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+    emit("autoscaler", head_resources={"CPU": 2, "GPU": 0},
+         node_type={"gpu-worker": {"CPU": 2, "GPU": 1}},
+         idle_timeout_s=AUTOSCALE_IDLE_S, config="bench_1b",
+         steps=OPS_STEPS, losses=got["losses"], train_losses=want,
+         bitwise=True, cuda_visible_devices=visible,
+         demand_to_node_registered_s=registered_s,
+         demand_to_first_reply_s=first_reply_s,
+         actor_setup_s=got["setup_s"], actor_step_s=got["step_s"],
+         idle_to_terminated_s=terminated_s,
+         scale_up_total=status["scale_up_total"],
+         scale_down_total=status["scale_down_total"],
+         last_decision=status.get("last_decision"),
+         flash_launches=got["flash_launches"])
+    return got["flash_launches"]
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return "zombie" not in f.read()
+    except OSError:
+        return False
+
+
+def _stop_cli_cluster() -> dict:
+    """``stop`` the CLI's cluster, then wait for its head and agent to
+    exit, killing any still alive after 30 s."""
+    import signal
+
+    with open(os.path.join(os.environ["RT_TMPDIR"],
+                           "latest_cluster.json")) as f:
+        started = json.load(f)
+    pids = [started["head_pid"], *started["agent_pids"]]
+    t0 = time.perf_counter()
+    r = _cli("stop", timeout=60)
+    deadline = time.monotonic() + 30
+    while any(map(_alive, pids)) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    killed = [p for p in pids if _alive(p)]
+    for p in killed:
+        os.kill(p, signal.SIGKILL)
+    check(r.returncode == 0, f"rtpu-torch stop: rc {r.returncode} {r.stderr}")
+    return {"stop_s": time.perf_counter() - t0, "killed_after_stop": killed}
+
+
+def phase_cluster_ops(train: dict) -> int:
+    """The cluster-operations phases: on a cluster started with the CLI,
+    cli_jobs, dashboard and workflow; then autoscaler on a cluster of
+    its own.  The clusters' session directories, the workflow storage
+    and checkpoints go to a temporary directory.  Returns the flash
+    launches made in the jobs, the actors and the workflow's steps, and
+    in the driver's uninterrupted run the workflow is held against."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["RT_TMPDIR"] = os.path.join(tmp, "cli")
+        os.makedirs(os.environ["RT_TMPDIR"])
+        t0 = time.perf_counter()
+        out = _cli_ok("start", "--head")
+        start_s = time.perf_counter() - t0
+        failed = True
+        try:
+            address = out.split("cluster started at ", 1)[1].split()[0]
+            rt.init(address=address)
+            try:
+                launches, holder = phase_cli_jobs(train)
+                phase_dashboard(holder)
+                train_4 = train_steps(WORKFLOW_LAYERS,
+                                      2 * WORKFLOW_HALF_STEPS)
+                launches += train_4["flash_launches"]
+                launches += phase_workflow(train_4, tmp)
+            finally:
+                rt.shutdown()
+            failed = False
+        finally:
+            try:
+                stopped = _stop_cli_cluster()
+            except Exception as e:  # noqa: BLE001
+                if not failed:
+                    raise
+                # the phase's own failure is what propagates
+                print(f"cli cluster stop after a failure: {e!r}",
+                      file=sys.stderr, flush=True)
+        emit("cli_cluster", start_s=start_s, address=address, **stopped)
+        autoscaler_tmp = os.path.join(tmp, "autoscaler")
+        os.makedirs(autoscaler_tmp)
+        launches += phase_autoscaler(train, autoscaler_tmp)
+    return launches
+
+
 def _mesh_spec(arg: str) -> dict:
     """"fsdp=2,sp=2" -> {"fsdp": 2, "sp": 2}."""
     return {k: int(v) for k, v in (kv.split("=") for kv in arg.split(","))}
@@ -2382,6 +2912,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -2408,6 +2939,7 @@ def main(argv) -> int:
     phase_rl_learner()
     flash_launches += phase_runtime_and_trainers(train)
     paged_launches += phase_serving(served)
+    flash_launches += phase_cluster_ops(train)
     kernels = []
     for name, row, launches, source, replaces in (
             ("flash_attention", flash, flash_launches,
@@ -2425,6 +2957,7 @@ def main(argv) -> int:
                         "library_ms": row["library_ms"]})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     check(all(math.isfinite(k["ms"]) for k in kernels), "bad timing")
+    emit("script", wall_s=time.perf_counter() - started)
     print(json.dumps({"kernels": kernels}), flush=True)
     _finish(smi)
     return 0

@@ -20,8 +20,10 @@ the state API) and ``cluster_utils``.  A fractional ``num_gpus`` takes a
 share of one card.  The package imports ``torch`` and numpy and nothing
 of ``ray_tpu``; where it needs a pure-Python module from there it keeps
 its own copy (``_private/runtime_copy.py`` lists them).  The
-cluster-operations libraries (the autoscaler, workflows, pub/sub, job
-submission, the CLI and the dashboard) come with a later slice.
+cluster-operations libraries run it from the shell and keep it: the
+``rtpu-torch`` CLI (``scripts``), job submission whose entrypoints see
+their node's cards, the head's dashboard, the ``autoscaler`` launching
+GPU nodes, durable ``workflow`` steps and ``experimental.pubsub``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``:
 with no GPU and no explicit ``"cpu"`` they raise instead of quietly
@@ -29,19 +31,15 @@ running on the CPU.  On a CPU tensor each kernel wrapper computes its
 plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
 """
 
-from ray_tpu_torch._private import later_slices as _later_slices
-
-_later_slices.install()
-
-from ray_tpu_torch._private.errors import (  # noqa: E402
+from ray_tpu_torch._private.errors import (
     ActorDiedError, ActorUnavailableError, DeadlineExceededError,
     DeploymentFailedError, GetTimeoutError, ObjectFreedError,
     ObjectLostError, OutOfMemoryError, PoisonedTaskError, RayError,
     RayTaskError, RayWorkerError, RuntimeEnvSetupError, SchedulingError,
     TaskCancelledError)
-from ray_tpu_torch._private.object_ref import ObjectRef  # noqa: E402
-from ray_tpu_torch._private.streaming import ObjectRefGenerator  # noqa: E402
-from ray_tpu_torch.api import (  # noqa: E402
+from ray_tpu_torch._private.object_ref import ObjectRef
+from ray_tpu_torch._private.streaming import ObjectRefGenerator
+from ray_tpu_torch.api import (
     ActorClass, ActorHandle, RemoteFunction, available_resources, cancel,
     cluster_resources, get, get_actor, get_async, init, is_initialized,
     kill, method, nodes, put, remote, shutdown, wait)

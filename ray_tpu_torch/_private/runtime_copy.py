@@ -78,6 +78,16 @@ COPIED: List[str] = [
     "tune/search.py",
     "tune/schedulers.py",
     "tune/tuner.py",
+    "experimental/pubsub.py",
+    "autoscaler/node_provider.py",
+    "autoscaler/fake_provider.py",
+    "autoscaler/autoscaler.py",
+    "autoscaler/__init__.py",
+    "workflow/storage.py",
+    "workflow/executor.py",
+    "workflow/__init__.py",
+    "_private/dashboard.py",
+    "scripts.py",
 ]
 
 PORTED: Dict[str, str] = {
@@ -98,7 +108,8 @@ PORTED: Dict[str, str] = {
     "_private/head.py":
         "forwards a lease's gpu_ids with an actor's creation push",
     "_private/worker.py":
-        "CUDA_VISIBLE_DEVICES per lease",
+        "CUDA_VISIBLE_DEVICES per lease; the value the worker was spawned "
+        "with stays readable (SPAWN_VISIBLE_DEVICES)",
     "serve/__init__.py":
         "the LLM names load on first use: the controller and the proxy "
         "never import torch",
@@ -113,6 +124,13 @@ PORTED: Dict[str, str] = {
         "each stage is an nn.Module on its leased card (num_gpus per "
         "stage, or device='cpu'); backward re-runs the stage forward "
         "under autograd; snapshots hold CPU tensors by parameter name",
+    "job_submission.py":
+        "the entrypoint takes the node's CUDA_VISIBLE_DEVICES (the agent's, "
+        "or unset), not the supervisor's CPU lease's \"\", which hides "
+        "every card: the reference pops TPU_VISIBLE_CHIPS for a CPU lease; "
+        "submit_job returns once the supervisor runs the job, so a caller "
+        "that exits at once (`job submit` without --wait) leaves no job "
+        "PENDING for ever",
     "util/placement_group.py":
         "tpu_slice_bundles goes: its TPU-{type}-head bundle has no GPU "
         "meaning; a GPU host's bundle is a plain {\"GPU\": n, \"CPU\": c}",

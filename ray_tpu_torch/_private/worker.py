@@ -1,7 +1,9 @@
 """CoreWorker: the in-process runtime of every driver and worker.
 
 Ported from ray_tpu's CoreWorker: a lease's ``gpu_ids`` become the
-executing worker's CUDA_VISIBLE_DEVICES (``_apply_gpu_env``).
+executing worker's CUDA_VISIBLE_DEVICES (``_apply_gpu_env``), and the
+value the process started with stays readable
+(``SPAWN_VISIBLE_DEVICES``).
 
 Equivalent of the reference's CoreWorker
 (reference: src/ray/core_worker/core_worker.h:291 — SubmitTask :910,
@@ -108,6 +110,11 @@ _MAX_ACTOR_INFLIGHT = 1000
 
 _global_worker: Optional["CoreWorker"] = None
 _global_lock = threading.Lock()
+
+# CUDA_VISIBLE_DEVICES as this process started with it: a worker's is
+# its node agent's, or None when the agent had none (every card of the
+# node).  _apply_gpu_env changes the live variable per lease; this stays.
+SPAWN_VISIBLE_DEVICES = os.environ.get("CUDA_VISIBLE_DEVICES")
 
 # root of the ray_tpu package: frames under it are framework internals,
 # the first frame OUTSIDE it is the user call-site recorded per ref

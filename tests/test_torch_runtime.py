@@ -19,7 +19,6 @@ import torch
 
 import ray_tpu_torch as rt
 from ray_tpu_torch._private import runtime_copy, serialization
-from ray_tpu_torch._private.later_slices import LATER
 from tests.torch_waits import bounded
 
 torch.set_num_threads(2)   # six xdist workers share the test machine
@@ -45,13 +44,17 @@ def test_every_runtime_module_is_copied_or_ported_by_name():
     assert not set(runtime_copy.COPIED) & set(runtime_copy.PORTED)
     runtime = [p.relative_to(PORT).as_posix()
                for d in ("_private", "_native", "util", "util/state",
-                         "data", "tune")
+                         "data", "tune", "autoscaler", "workflow",
+                         "experimental")
                for p in (PORT / d).iterdir()
                if p.suffix in (".py", ".c") and p.read_text().strip()
                and (SRC / d / p.name).exists()]
-    runtime += ["api.py", "cluster_utils.py", "train/session.py"]
+    runtime += ["api.py", "cluster_utils.py", "train/session.py",
+                "job_submission.py", "scripts.py"]
     for rel in ("util/state/__init__.py", "data/dataset.py",
-                "tune/tuner.py", "cluster_utils.py"):
+                "tune/tuner.py", "cluster_utils.py",
+                "autoscaler/autoscaler.py", "workflow/executor.py",
+                "experimental/pubsub.py", "_private/dashboard.py"):
         assert rel in runtime, rel
     listed = set(runtime_copy.COPIED) | set(runtime_copy.PORTED)
     assert sorted(set(runtime) - listed) == []
@@ -85,14 +88,6 @@ def test_rename_touches_module_paths_only():
         "print('ray_tpu head listening')\n"
         "self._reconcile_one(ray_tpu_torch, name, app)\n"
         "self._apply_backpressure(ray_tpu_torch)\n")
-
-
-@pytest.mark.parametrize("name", sorted(LATER))
-def test_a_later_slice_raises_naming_its_slice(name):
-    with pytest.raises(ImportError) as ei:
-        __import__(name)
-    err = ei.value
-    assert "is not ported yet" in str(err) and LATER[name] in str(err)
 
 
 # ------------------------------------------------- the memory store's lock
