@@ -70,6 +70,14 @@ once it is idle.  Each phase prints one JSON line; a failed check raises, so the
 non-zero.  The last lines are the card's name and power limit (from
 nvidia-smi), then {"ok": true, "device": {...}}.
 
+On four cards or more, ``pipeline_mesh`` puts the pipeline phase's
+model, init and batch through ``TrainPipeline(pp=2, stage_mesh=X)`` for
+X in fsdp=2, tp=2 and sp=2, each stage two ranks on a card each in a
+process group of its own (nccl), whose first loss must be the train
+phase's within the dist_train bound of its layout, whose losses must
+fall, whose every rank must run on a card of its own and launch flash
+as its schedule says; on fewer cards it prints that it did not run.
+
 Exits non-zero, printing no result, when no CUDA device is visible.
 
     python3 chip_smoke.py --dist-only fsdp=2,sp=2 dp=2,tp=2
@@ -77,6 +85,11 @@ Exits non-zero, printing no result, when no CUDA device is visible.
 builds the kernels, runs the single-card ``train`` phase as the
 reference and then ``dist_train`` on each mesh given, one rank per
 visible card (for a machine with several cards).
+
+    python3 chip_smoke.py --pipeline-mesh-only fsdp=2 tp=2 sp=2
+
+runs the ``train`` phase as the reference and then ``pipeline_mesh`` on
+each stage layout given (four cards).
 """
 
 from __future__ import annotations
@@ -321,7 +334,11 @@ def phase_kernel_flash(gen) -> dict:
     cases = [("8b_prefill", 2, 2048, 32, 8, 128),
              ("entry_small", 8, 512, 12, 4, 64),
              ("train_1b", 8, 1024, 12, 4, 128),
-             ("pipeline_microbatch", 2, 1024, 12, 4, 128)]
+             ("pipeline_microbatch", 2, 1024, 12, 4, 128),
+             # a stage rank's microbatch at fsdp=2 (half the rows) and
+             # at tp=2 (half the heads)
+             ("stage_rank_fsdp2", 1, 1024, 12, 4, 128),
+             ("stage_rank_tp2", 2, 1024, 6, 2, 128)]
     for label, b, s, h, hkv, d in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, s, h, d), generator=gen,
@@ -1808,32 +1825,37 @@ def _expected_stage_launches(cfg, ranges, steps: int) -> list:
             for s, (start, end) in enumerate(ranges)]
 
 
-def _run_pipeline(cfg, seed: int, tokens, steps: int) -> dict:
-    """Deploy a 2-stage TrainPipeline, take ``steps`` steps, read each
-    stage's flash launches (0 before the first step: the stage
-    processes are fresh) and tear it down."""
+def _run_pipeline(cfg, seed: int, tokens, steps: int,
+                  stage_mesh: dict = None) -> dict:
+    """Deploy a 2-stage TrainPipeline (each stage over ``stage_mesh``, a
+    whole card a rank, when given), take ``steps`` steps, read each
+    rank's flash launches (0 before the first step: the stage processes
+    are fresh) and tear it down."""
     from ray_tpu_torch.train import TrainPipeline
 
-    num_gpus = _stage_gpus()
+    num_gpus = 1.0 if stage_mesh else _stage_gpus()
     t0 = time.perf_counter()
     pipe = TrainPipeline(cfg, pp=2, microbatch_size=PIPE_MICROBATCH,
                          num_microbatches=PIPE_MICROBATCHES,
                          seq_len=TRAIN_SHAPE[1], rng_seed=seed,
-                         num_gpus=num_gpus, step_timeout=PIPE_TIMEOUT_S,
+                         stage_mesh=stage_mesh, num_gpus=num_gpus,
+                         step_timeout=PIPE_TIMEOUT_S,
                          compile_timeout=PIPE_TIMEOUT_S)
     deploy_s = time.perf_counter() - t0
     try:
         infos = [pipe._ctl(h, {"op": "info"}, timeout=60)
                  for h in pipe._handles]
         before = [i["kernel_launches"]["flash_attention"] for i in infos]
-        check(before == [0, 0], f"pipeline: stages start at {before}")
+        check(before == [0] * len(infos),
+              f"pipeline: stages start at {before}")
         outs = [pipe.step(tokens) for _ in range(steps)]
         launches = _stage_flash_launches(pipe)
     finally:
         pipe.teardown()
     return {"outs": outs, "launches": launches, "deploy_s": deploy_s,
             "num_gpus_per_stage": num_gpus, "ranges": pipe._ranges,
-            "stage_devices": [i["device"] for i in infos]}
+            "stage_devices": [i["device"] for i in infos], "infos": infos,
+            "ranks_per_stage": pipe.ranks_per_stage}
 
 
 def phase_pipeline(train: dict) -> int:
@@ -1917,6 +1939,138 @@ def phase_pipeline_identity() -> int:
          loss_rel_bound=PIPE_IDENTITY_LOSS_REL,
          stage_flash_launches=run["launches"], deploy_s=run["deploy_s"])
     return sum(run["launches"])
+
+
+# pipeline_mesh: the pipeline phase's model, init, batch and schedule
+# with each stage over two cards, one rank a card, in a process group of
+# the stage's own.  fsdp=2 computes the same sums as one card, row by
+# row, so its first loss takes dist_train's fsdp bound; tp=2 and sp=2
+# sum in another order, so theirs take dist_train's sharded-math bound.
+PIPE_MESH_LAYOUTS = ("fsdp=2", "tp=2", "sp=2")
+PIPE_MESH_CARDS = 4     # pp=2 stages of 2 ranks, a whole card a rank
+
+
+def _nccl_transports(log_dir: str, pids) -> dict:
+    """{transport: channel connections} in the NCCL_DEBUG=INFO files of
+    the processes ``pids`` (NCCL logs "... via P2P/IPC", "via SHM/...",
+    "via NET/..." for each channel it connects)."""
+    import re
+
+    counts: dict = {}
+    for name in os.listdir(log_dir):
+        if not name.startswith("nccl.") \
+                or int(name.rsplit(".", 1)[1]) not in pids:
+            continue
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            for line in f:
+                hit = re.search(r" via (\S+)", line)
+                if hit:
+                    counts[hit.group(1)] = counts.get(hit.group(1), 0) + 1
+    return counts
+
+
+def _pipeline_mesh_layout(cfg, tokens, train: dict, spec: dict,
+                          log_dir: str) -> int:
+    """One layout of pipeline_mesh; returns the ranks' flash launches."""
+    run = _run_pipeline(cfg, SEED, tokens, PIPE_STEPS, stage_mesh=spec)
+    outs, infos, n = run["outs"], run["infos"], run["ranks_per_stage"]
+    losses = [o["loss"] for o in outs]
+    sharded_math = spec.get("tp", 1) > 1 or spec.get("sp", 1) > 1
+    bound = DIST_SHARDED_MATH_LOSS_REL if sharded_math else \
+        DIST_FIRST_LOSS_REL
+    first_rel = abs(losses[0] - train["losses"][0]) / abs(train["losses"][0])
+    # flash runs where attention is not a ring, on every rank as on a
+    # stage of one card
+    per_stage = _expected_stage_launches(cfg, run["ranges"], PIPE_STEPS)
+    want = [0 if spec.get("sp", 1) > 1 else per_stage[s]
+            for s in range(2) for _ in range(n)]
+    cards = [i["card"]["uuid"] for i in infos]
+    check(n == math.prod(spec.values()) and len(infos) == 2 * n,
+          f"pipeline_mesh {spec}: {len(infos)} ranks")
+    check(all(math.isfinite(x) for x in losses),
+          f"pipeline_mesh {spec}: {losses}")
+    check(first_rel <= bound, f"pipeline_mesh {spec}: first loss "
+          f"{losses[0]} vs train {train['losses'][0]}")
+    check(losses[-1] < losses[0],
+          f"pipeline_mesh {spec}: loss did not fall: {losses}")
+    check(run["launches"] == want, f"pipeline_mesh {spec}: rank flash "
+          f"launches {run['launches']} != {want}")
+    check(len(set(cards)) == len(cards),
+          f"pipeline_mesh {spec}: ranks share a card: {cards}")
+    wall = [o["wall_s"] for o in outs]
+    transports = {
+        f"stage{s}": _nccl_transports(
+            log_dir, {i["pid"] for i in infos[s * n:(s + 1) * n]})
+        for s in range(2)}
+    emit("pipeline_mesh", ran=True, config="bench_1b", stage_mesh=spec,
+         pp=2, ranks_per_stage=n, ranges=run["ranges"],
+         microbatch_size=PIPE_MICROBATCH,
+         num_microbatches=PIPE_MICROBATCHES, tokens=list(TRAIN_SHAPE),
+         cards=torch.cuda.device_count(),
+         ranks=[{k: i[k] for k in ("stage", "rank", "pid", "device", "card",
+                                   "visible_devices")} for i in infos],
+         deploy_s=run["deploy_s"], losses=losses,
+         train_loss_first=train["losses"][0], loss_first_rel=first_rel,
+         loss_first_rel_bound=bound, step_wall_s=wall,
+         step_wall_s_median=statistics.median(wall[1:]),
+         train_step_s_median=train["step_s_median"],
+         tokens_per_s=[o["tokens_per_s"] for o in outs],
+         tokens_per_s_median=statistics.median(
+             o["tokens_per_s"] for o in outs[1:]),
+         bubble_pct=[o["bubble_pct"] for o in outs],
+         bubble_pct_median=statistics.median(
+             o["bubble_pct"] for o in outs[1:]),
+         bubble_pct_1f1b=100.0 / (PIPE_MICROBATCHES + 1),
+         per_stage={f"stage{s}": {k: [o["per_stage"][s][k] for o in outs]
+                                  for k in ("fwd_s", "bwd_s", "opt_s",
+                                            "busy_s")}
+                    for s in range(2)},
+         busy_s_of="each stage's rank 0",
+         rank_flash_launches=run["launches"],
+         nccl_transports=transports)
+    return sum(run["launches"])
+
+
+def phase_pipeline_mesh(train: dict, layouts) -> int:
+    """bench_1b through ``TrainPipeline(pp=2, stage_mesh=X)`` for each
+    layout X ("fsdp=2", ...), on a cluster of its own whose stage
+    processes log NCCL's setup (NCCL_DEBUG=INFO) to files; each layout's
+    first loss within its bound of the train phase's, falling losses,
+    each rank's flash launches as the schedule says, a card per rank.
+    Needs PIPE_MESH_CARDS cards: with fewer it prints that it did not
+    run.  Returns the ranks' flash launches."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    cards = torch.cuda.device_count()
+    if cards < PIPE_MESH_CARDS:
+        emit("pipeline_mesh", ran=False, cards_seen=cards,
+             cards_needed=PIPE_MESH_CARDS,
+             reason="two stages of two ranks, a whole card a rank")
+        return 0
+    cfg = LlamaConfig.bench_1b()
+    tokens = _train_tokens(cfg, SEED)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {"RT_TMPDIR": tmp, "NCCL_DEBUG": "INFO",
+               "NCCL_DEBUG_SUBSYS": "INIT,P2P,SHM,NET",
+               "NCCL_DEBUG_FILE": os.path.join(tmp, "nccl.%h.%p")}
+        before = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)    # the cluster's processes inherit it
+        rt.init(object_store_memory=RUNTIME_STORE_BYTES)
+        try:
+            for layout in layouts:
+                launches += _pipeline_mesh_layout(cfg, tokens, train,
+                                                  _mesh_spec(layout), tmp)
+        finally:
+            rt.shutdown()
+            for k, v in before.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return launches
 
 
 class ChannelHop:
@@ -2925,6 +3079,13 @@ def main(argv) -> int:
             phase_dist_train(train, _mesh_spec(arg))
         _finish(smi)
         return 0
+    if argv[:1] == ["--pipeline-mesh-only"]:
+        # the train phase as the reference, then pipeline_mesh on each
+        # stage layout given ("fsdp=2" ...)
+        train = phase_train()[1]
+        phase_pipeline_mesh(train, argv[1:] or PIPE_MESH_LAYOUTS)
+        _finish(smi)
+        return 0
     paged = phase_kernel_paged(gen)
     flash = phase_kernel_flash(gen)
     flash_launches = phase_forward(gen)
@@ -2938,6 +3099,7 @@ def main(argv) -> int:
     flash_launches += phase_dist_train(train)
     phase_rl_learner()
     flash_launches += phase_runtime_and_trainers(train)
+    flash_launches += phase_pipeline_mesh(train, PIPE_MESH_LAYOUTS)
     paged_launches += phase_serving(served)
     flash_launches += phase_cluster_ops(train)
     kernels = []

@@ -122,8 +122,10 @@ PORTED: Dict[str, str] = {
         "names TorchTrainer",
     "train/pipeline.py":
         "each stage is an nn.Module on its leased card (num_gpus per "
-        "stage, or device='cpu'); backward re-runs the stage forward "
-        "under autograd; snapshots hold CPU tensors by parameter name",
+        "stage, or device='cpu'), a stage over several cards one process "
+        "per card in a process group of its own; backward re-runs the "
+        "stage forward under autograd; snapshots hold CPU tensors by "
+        "parameter name",
     "job_submission.py":
         "the entrypoint takes the node's CUDA_VISIBLE_DEVICES (the agent's, "
         "or unset), not the supervisor's CPU lease's \"\", which hides "

@@ -477,11 +477,14 @@ class LlamaStage(nn.Module):
         if seed is not None:
             init_weights(self, seed)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, start_pos: int = 0) -> torch.Tensor:
+        """``x`` at positions ``start_pos`` on: a sequence shard of sp
+        rank i starts at i·S, as in :meth:`LlamaModel.forward`."""
         cfg = self.cfg
         if self.first:
             x = self.embed(x).to(cfg.dtype)
-        positions = torch.arange(x.shape[1], device=x.device,
+        positions = torch.arange(start_pos, start_pos + x.shape[1],
+                                 device=x.device,
                                  dtype=torch.int32).expand(x.shape[:2])
         x = _blocks(cfg, self.layers.values(), x, positions)
         if self.last:
@@ -560,7 +563,8 @@ def kv_pool_bytes(cfg: LlamaConfig, num_slots: int) -> int:
             * cfg.head_dim * cfg.dtype.itemsize)
 
 
-def llama_param_rules() -> Dict[str, Any]:
+def llama_param_rules(model: Optional[nn.Module] = None
+                      ) -> Dict[str, Any]:
     """The tensor-parallel plan (``parallelize_module``) by module path,
     the counterpart of the JAX package's PartitionSpec rules.  Flax
     kernels are [in, out]; ``nn.Linear.weight`` is [out, in], so "tp on
@@ -585,12 +589,16 @@ def llama_param_rules() -> Dict[str, Any]:
 
     FSDP2 then shards dim 0 of each (local) weight over fsdp where JAX
     shards the other big dim: the values are the same, only their
-    memory layout differs, so the two compare by value."""
+    memory layout differs, so the two compare by value.
+
+    With ``model``, only the entries for modules it has: a
+    :class:`LlamaStage` holds ``embed`` only on the first stage and
+    ``lm_head`` only on the last."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.parallel import (ColwiseParallel,
                                                    RowwiseParallel)
 
-    return {
+    rules = {
         "embed": RowwiseParallel(input_layouts=Replicate()),
         "layers.*.attn.wq": ColwiseParallel(),
         "layers.*.attn.wk": ColwiseParallel(),
@@ -601,6 +609,10 @@ def llama_param_rules() -> Dict[str, Any]:
         "layers.*.mlp.w2": RowwiseParallel(),
         "lm_head": ColwiseParallel(output_layouts=Replicate()),
     }
+    if model is None:
+        return rules
+    return {path: plan for path, plan in rules.items()
+            if hasattr(model, path.split(".")[0])}
 
 
 def lm_loss_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

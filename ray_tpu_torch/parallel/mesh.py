@@ -89,14 +89,19 @@ class Mesh:
     """A resolved mesh: ``shape`` maps each axis of AXIS_ORDER to its
     size (as ``jax.sharding.Mesh.shape`` does), ``devices`` holds this
     process's device, and ``device_mesh`` is the DeviceMesh over the
-    process group (None for a one-device mesh).  ``fsdp_mesh`` is its
-    2-D (dp_sp, fsdp) sub-mesh, FSDP2's: parameters replicated over dp
-    and sp together, sharded over fsdp."""
+    process group (None for a one-device mesh).  ``fsdp_mesh`` is
+    FSDP2's: the 2-D (dp_sp, fsdp) sub-mesh, parameters replicated over
+    dp and sp together and sharded over fsdp.  Where torch cannot slice
+    that, it is the 1-D fsdp sub-mesh, and ``replica_mesh`` the 1-D
+    dp_sp sub-mesh over whose processes, which hold the same
+    parameters, the grads are still to be summed (None when there is
+    nothing to sum)."""
 
     devices: Tuple[torch.device, ...]
     spec: MeshSpec
     device_mesh: Optional[DeviceMesh] = None
     fsdp_mesh: Optional[DeviceMesh] = None
+    replica_mesh: Optional[DeviceMesh] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -170,6 +175,14 @@ def _process_mesh(spec: Optional[MeshSpec]) -> Mesh:
         # FSDP2 and tensor parallelism must share one root mesh; slicing
         # the flattened dim from the root is how to get there
         warnings.filterwarnings("ignore", message="Slicing a flattened dim")
+        # torch 2.11 refuses the (dp_sp, fsdp) slice where sp > 1 at
+        # fsdp = 1, and where dp_sp is 1 at tp > 1: its layout gives a
+        # dim of size 1 a stride out of order (torch 2.13 slices all)
+        replicas = sizes["dp"] * sizes["sp"]
+        if (sizes["fsdp"] == 1 and sizes["sp"] > 1) \
+                or (replicas == 1 and sizes["tp"] > 1):
+            return Mesh((dev,), spec, dm, dm["fsdp"],
+                        dm["dp_sp"] if replicas > 1 else None)
         fsdp_mesh = dm["dp_sp", "fsdp"]
     return Mesh((dev,), spec, dm, fsdp_mesh)
 
@@ -231,6 +244,21 @@ def shard_batch(mesh: Mesh, batch: Any) -> Any:
             placement["sp"] = 1
         return _local_slice(mesh, x, placement).contiguous()
     return _tree_map(put, batch)
+
+
+def gather_batch(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The whole of a tensor that :func:`shard_batch` split, on every
+    process of the mesh: all-gathers dim 0 over fsdp and then dp, and
+    dim 1 over sp.  Processes that differ only in tp hold the same
+    value already.  A one-device mesh returns ``x``."""
+    for axis, dim in (("fsdp", 0), ("dp", 0), ("sp", 1)):
+        n = mesh.shape[axis]
+        if n == 1 or (dim == 1 and x.dim() < 2):
+            continue
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
+        x = torch.cat(parts, dim=dim)
+    return x
 
 
 def _placements(placement: Optional[Dict[str, int]]):

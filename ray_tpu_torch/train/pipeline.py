@@ -16,8 +16,13 @@ ray_tpu's; the stage itself is PyTorch:
     :class:`~ray_tpu_torch.models.llama.LlamaStage` and its AdamW on its
     leased card (``num_gpus`` per stage: a whole card, or a share of one
     that several stages time-slice), or on the CPU when the pipeline is
-    built with ``device="cpu"``.  A stage is one process on one device:
-    in-stage meshes (fsdp/tp/sp inside a stage) are not ported.
+    built with ``device="cpu"``.  A stage over ``n > 1`` devices (an
+    in-stage mesh of fsdp/tp/sp/dp, ``stage_mesh``) is ``n`` actors, one
+    whole card each, in a process group of the stage's own (nccl; gloo
+    on the CPU): the JAX package's stage is one process over ``n``
+    devices.  Every rank reads the stage's rings and takes its slice of
+    each microbatch; rank 0 writes the stage's output, gathered over
+    the group.
   * All edges are mutable compiled-graph channels (dag/channel.py):
     pre-allocated shm rings, remote readers fed by bulk-plane pushes.
     Activation channels are DEEP (ring depth bounds the in-flight
@@ -42,12 +47,15 @@ ray_tpu's; the stage itself is PyTorch:
 
 Failure model: a dying stage fails its loop task; the driver monitor
 poisons every channel within ``dag_monitor_interval_s`` so all blocked
-parties raise instead of hanging.  With checkpointing on (``save_every``
+parties raise instead of hanging, and kills the ranks that a poisoned
+channel cannot reach: the dead rank's stage peers, and any rank still
+inside a collective of its group.  With checkpointing on (``save_every``
 > 0, stage actors created with ``max_restarts``), stages persist
 (step, params, opt_state) through the ``__rt_save__``/``__rt_restore__``
-hooks at step boundaries and :meth:`TrainPipeline.resume` rolls every
-stage back to the newest COMMON snapshot step, rebuilds fresh channels,
-and reinstalls the loops.
+hooks at step boundaries (each rank its own shards) and
+:meth:`TrainPipeline.resume` forms the stages' groups again, rolls
+every rank back to the newest COMMON snapshot step, rebuilds fresh
+channels, and reinstalls the loops.
 """
 
 from __future__ import annotations
@@ -199,38 +207,73 @@ def slice_params_for_stage(params: Dict[str, Any],
 
 
 def _host_copy(value: Any) -> Any:
-    """A CPU copy of a tensor that shares no memory with it (``.cpu()``
-    of a CPU tensor is the tensor itself); other values as they are."""
+    """A CPU copy of a tensor's local part (a DTensor's own shard) that
+    shares no memory with it (``.cpu()`` of a CPU tensor is the tensor
+    itself); other values as they are."""
     if isinstance(value, torch.Tensor):
-        return value.detach().to("cpu", copy=True)
+        return _local(value).detach().to("cpu", copy=True)
     return value
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The part of ``t`` this process holds: a DTensor's local shard."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(p: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` (a shard saved from a tensor laid out as ``p``) laid
+    out as ``p`` again, on its device."""
+    from torch.distributed.tensor import DTensor
+
+    local = local.to(_local(p).device)
+    if isinstance(p, DTensor):
+        return DTensor.from_local(local, p.device_mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride())
+    return local
+
+
 class PipelineStage:
-    """Actor hosting ONE pipeline stage: its LlamaStage and AdamW on the
-    stage's device (``spec["device"]``, or the lease's card), the stage
-    functions of ``build_llama_stage_state``, and the pinned 1F1B loop
-    (entered via the ``__rt_dag_pipeline_loop__`` system method, so the
-    exec thread stays pinned exactly like a compiled-DAG loop)."""
+    """Actor hosting ONE rank of ONE pipeline stage: its share of the
+    stage's LlamaStage and AdamW on the rank's device (``spec["device"]``,
+    or the lease's card), the stage functions of
+    ``build_llama_stage_state``, and the pinned 1F1B loop (entered via
+    the ``__rt_dag_pipeline_loop__`` system method, so the exec thread
+    stays pinned exactly like a compiled-DAG loop).
+
+    A stage of one rank builds itself at once.  A stage of ``n > 1``
+    ranks is one process per device, as a JAX stage is one process over
+    several: its ranks build only once the driver has them join the
+    stage's own process group (the ``join`` control op), whose mesh
+    (``spec["mesh_axes"]``) the stage is laid out on."""
 
     def __init__(self, spec: Dict[str, Any]):
         self.spec = spec
         self.stage = int(spec["stage"])
+        self.rank = int(spec.get("rank", 0))
+        self.n_ranks = int(spec.get("n_ranks", 1))
         self.n_stages = int(spec["n_stages"])
         self.num_microbatches = int(spec["num_microbatches"])
         self._step = 0
-        self._build()
+        self._st: Optional[Dict[str, Any]] = None
+        if self.n_ranks == 1:
+            self._build()
 
     # ----------------------------------------------------------- the stage
 
     def _build(self) -> None:
         from ray_tpu_torch.parallel.mesh import MeshSpec, make_mesh
-        from ray_tpu_torch.train.gspmd import build_llama_stage_state
+        from ray_tpu_torch.train.gspmd import (build_llama_stage_state,
+                                               load_params)
 
         spec = self.spec
-        # the lease's card (CUDA_VISIBLE_DEVICES), or the device named
-        self._mesh = make_mesh(MeshSpec(**spec.get("mesh_axes", {})),
-                               devices=[spec.get("device")])
+        axes = MeshSpec(**spec.get("mesh_axes", {}))
+        # one rank: the lease's card (CUDA_VISIBLE_DEVICES), or the
+        # device named; several: the mesh over the stage's group
+        self._mesh = (make_mesh(axes, devices=[spec.get("device")])
+                      if self.n_ranks == 1 else make_mesh(axes))
         start, end = spec["ranges"][self.stage]
         self._first = self.stage == 0
         self._last = self.stage == self.n_stages - 1
@@ -244,18 +287,29 @@ class PipelineStage:
             learning_rate=float(spec.get("learning_rate", 3e-4)))
         initial = spec.get("initial_params")
         if initial is not None:
-            self._load_params(initial)
+            # whole tensors: each rank keeps its shard of them
+            load_params(self._st["params"], initial)
 
-    @torch.no_grad()
-    def _load_params(self, state: Dict[str, Any]) -> None:
-        for name, p in self._st["params"].named_parameters():
-            p.copy_(torch.as_tensor(state[name]).to(p.device, p.dtype))
+    def _join(self, coordinator: str) -> None:
+        """Join the stage's process group at ``coordinator`` and build
+        the stage on it; a group and stage from before are dropped
+        first (``resume`` forms every group again)."""
+        from ray_tpu_torch.parallel import (init_distributed,
+                                            shutdown_distributed)
+
+        self._st = None
+        shutdown_distributed()
+        init_distributed(coordinator, self.n_ranks, self.rank,
+                         device=self.spec.get("device"))
+        self._build()
 
     # --------------------------------------------------- save/restore hooks
 
     def __rt_save__(self) -> Dict[str, Any]:
         """(step, params, AdamW state) as CPU tensors, each keyed by its
-        parameter's name in the stage's state dict."""
+        parameter's name in the stage's state dict; a rank of a stage
+        over several devices saves its own shards.  No collective runs
+        here: the driver saves one rank after another."""
         model, opt = self._st["params"], self._st["opt_state"]
         host = {name: _host_copy(p) for name, p in model.named_parameters()}
         moments = {}
@@ -265,16 +319,19 @@ class PipelineStage:
                 moments[name] = {k: _host_copy(v) for k, v in st.items()}
         return {"step": self._step, "params": host, "opt": moments}
 
+    @torch.no_grad()
     def __rt_restore__(self, state: Dict[str, Any]) -> None:
+        if self._st is None:
+            # a restarted rank of a stage over several devices: resume()
+            # loads the snapshot once the stage's group has formed again
+            return
         model, opt = self._st["params"], self._st["opt_state"]
-        self._load_params(state["params"])
-        # the optimizer's own state dict keys its state by the index of
-        # each parameter in its group, which is named_parameters' order
-        sd = opt.state_dict()
-        names = [name for name, _ in model.named_parameters()]
-        sd["state"] = {i: state["opt"][name] for i, name in enumerate(names)
-                       if name in state["opt"]}
-        opt.load_state_dict(sd)
+        for name, p in model.named_parameters():
+            _local(p).copy_(state["params"][name])
+            saved = state["opt"].get(name)
+            if saved:
+                opt.state[p] = {k: v if k == "step" else _like(p, v)
+                                for k, v in saved.items()}
         self._step = int(state["step"])
 
     # ------------------------------------------------------------ exec loop
@@ -295,6 +352,7 @@ class PipelineStage:
         self._step = int(plan.get("start_step", self._step))
         chans = plan["channels"]
         device = self._mesh.device
+        gather = st["gather_value"]
 
         def sync():
             if device.type == "cuda":
@@ -313,6 +371,7 @@ class PipelineStage:
                 return None
             return ch.ChannelWriter(ch.ChannelSpec(**c["spec"]))
 
+        # every rank reads its stage's rings; only rank 0 writes
         in_r = mk_reader("input")     # tokens: first + last stages
         act_r = mk_reader("act_in")   # activations from upstream
         gy_r = mk_reader("grad_in")   # activation grads from downstream
@@ -323,14 +382,23 @@ class PipelineStage:
         t_local = 0
         completed = 0
 
-        def take(reader, seq):
-            """Blocking read -> a tensor on the stage's device; the ring
-            slot is released only once the value is the stage's own (a
-            numpy value read from a ring aliases ring memory)."""
+        def take(reader, seq, prepare):
+            """Blocking read -> a tensor on the stage's device (the
+            rank's slice, or the whole microbatch); the ring slot is
+            released only once the value is the stage's own (a numpy
+            value read from a ring aliases ring memory)."""
             value = self._read(reader, seq)
-            out = st["shard_value"](value)
+            out = prepare(value)
             reader.advance(seq)
             return out
+
+        def host(value, writer):
+            """The host copy that ``writer`` takes (the copy syncs); a
+            rank that writes nothing syncs its device instead."""
+            if writer is not None:
+                return value.cpu()
+            sync()
+            return None
 
         try:
             while True:
@@ -344,42 +412,47 @@ class PipelineStage:
                 for op, k in ops:
                     seq = base + k + 1
                     if op == "F":
-                        x = take(act_r if not first else in_r, seq)
+                        x = take(act_r if not first else in_r, seq,
+                                 st["shard_value"])
                         if last:
-                            targets = take(in_r, seq)
+                            targets = take(in_r, seq, st["whole_value"])
                             t0 = time.perf_counter()
                             loss, gx = st["loss_bwd"](st["params"], x,
                                                       targets)
+                            if gx is not None:
+                                gx = gather(gx)
                             loss = float(loss)  # syncs the fused step
                             bwd_s += time.perf_counter() - t0
                             pending[k] = (loss, gx)
                         else:
                             t0 = time.perf_counter()
-                            y_host = st["fwd"](st["params"], x).cpu()
+                            y_host = host(gather(st["fwd"](st["params"], x)),
+                                          act_w)
                             fwd_s += time.perf_counter() - t0
-                            act_w.write(y_host)
+                            if act_w is not None:
+                                act_w.write(y_host)
                             inputs[k] = x
                     else:  # "B"
+                        gx_host = None
                         if last:
                             loss, gx = pending.pop(k)
                             loss_sum += loss
-                            if gx_w is not None:
+                            if gx is not None:
                                 t0 = time.perf_counter()
-                                gx_host = gx.cpu()  # sync residue
+                                gx_host = host(gx, gx_w)  # sync residue
                                 bwd_s += time.perf_counter() - t0
-                                gx_w.write(gx_host)
                         else:
-                            gy = take(gy_r, seq)
+                            gy = take(gy_r, seq, st["shard_value"])
                             x = inputs.pop(k)
                             t0 = time.perf_counter()
                             gx = st["bwd"](st["params"], x, gy)
-                            if gx_w is not None:
-                                gx_host = gx.cpu()  # sync
+                            if gx is not None:
+                                gx_host = host(gather(gx), gx_w)
                             else:
                                 sync()
                             bwd_s += time.perf_counter() - t0
-                            if gx_w is not None:
-                                gx_w.write(gx_host)
+                        if gx_w is not None:
+                            gx_w.write(gx_host)
                 t0 = time.perf_counter()
                 st["opt_step"](st["params"], st["opt_state"])
                 sync()
@@ -388,12 +461,15 @@ class PipelineStage:
                 wall = time.perf_counter() - t_step0
                 if save_every > 0 and self._step % save_every == 0:
                     worker.persist_actor_state()
-                rep_w.write({
-                    "stage": self.stage, "step": self._step,
-                    "loss": (loss_sum / m) if last else None,
-                    "fwd_s": fwd_s, "bwd_s": bwd_s, "opt_s": opt_s,
-                    "busy_s": fwd_s + bwd_s + opt_s, "wall_s": wall,
-                })
+                if rep_w is not None:
+                    # rank 0's times: its peers run the same ops in step
+                    # with it, each collective waiting for the slowest
+                    rep_w.write({
+                        "stage": self.stage, "step": self._step,
+                        "loss": (loss_sum / m) if last else None,
+                        "fwd_s": fwd_s, "bwd_s": bwd_s, "opt_s": opt_s,
+                        "busy_s": fwd_s + bwd_s + opt_s, "wall_s": wall,
+                    })
                 t_local += 1
                 completed += 1
         except ch.ChannelClosedError:
@@ -406,6 +482,13 @@ class PipelineStage:
                     except Exception:
                         pass
                     writer.detach()
+            if self.n_ranks > 1:
+                # a peer still inside a collective with this rank fails
+                # there (gloo) instead of waiting for it; over nccl the
+                # driver kills such a peer
+                from ray_tpu_torch.parallel import shutdown_distributed
+
+                shutdown_distributed()
         return {"steps_completed": completed, "step": self._step}
 
 
@@ -433,10 +516,27 @@ def run_stage_ctl(worker, instance, req: Dict[str, Any]) -> Dict[str, Any]:
 
     op = req.get("op")
     if op == "info":
+        built = instance._st is not None
+        device = instance._mesh.device if built else None
+        card = None
+        if built and device.type == "cuda":
+            props = torch.cuda.get_device_properties(device)
+            card = {"name": props.name, "uuid": str(props.uuid),
+                    "pci_bus_id": getattr(props, "pci_bus_id", None)}
         return {"pid": os.getpid(), "step": instance._step,
                 "node_id": worker.node_id, "stage": instance.stage,
-                "device": str(instance._mesh.device),
+                "rank": instance.rank, "device": str(device) if built else None,
+                "card": card,
+                "visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "kernel_launches": kernel_launches()}
+    if op == "rendezvous":
+        # the stage group's coordinator, on rank 0's node
+        from ray_tpu_torch.train.worker_group import _free_port, _node_ip
+
+        return {"coordinator": f"{_node_ip()}:{_free_port()}"}
+    if op == "join":
+        instance._join(req["coordinator"])
+        return {"ok": True}
     if op == "save_now":
         return {"saved": worker.persist_actor_state(),
                 "step": instance._step}
@@ -467,6 +567,39 @@ def run_stage_ctl(worker, instance, req: Dict[str, Any]) -> Dict[str, Any]:
 # ------------------------------------------------------------------- driver
 
 
+# how long a rank's loop may take to return once the pipeline failed
+# before the driver takes it for stuck inside a collective
+STUCK_RANK_GRACE_S = 5.0
+
+
+def _resolve_stage_mesh(cfg, axes: Dict[str, int], devices_per_stage: int,
+                        microbatch_size: int, seq_len: int
+                        ) -> Dict[str, int]:
+    """The in-stage mesh's size on each axis: ``axes`` over
+    ``devices_per_stage`` devices (0: the product of ``axes``), as the
+    JAX package's ``make_mesh`` resolves it over a stage's devices; the
+    microbatch's rows must split over dp·fsdp, its sequence over sp and
+    the KV heads over tp."""
+    from ray_tpu_torch.parallel.mesh import MeshSpec
+
+    n = devices_per_stage or math.prod(axes.values())
+    if n < 1:
+        raise ValueError(f"stage_mesh {axes}: a -1 axis fills "
+                         f"devices_per_stage, which is not given")
+    sizes = MeshSpec(**axes).resolve(n).axis_sizes()
+    del sizes["pp"]
+    if microbatch_size % (sizes["dp"] * sizes["fsdp"]):
+        raise ValueError(f"stage_mesh {sizes}: dp·fsdp does not divide "
+                         f"microbatch_size={microbatch_size}")
+    if seq_len % sizes["sp"]:
+        raise ValueError(f"stage_mesh {sizes}: sp does not divide "
+                         f"seq_len={seq_len}")
+    if cfg.n_kv_heads % sizes["tp"]:
+        raise ValueError(f"stage_mesh {sizes}: tp does not divide "
+                         f"n_kv_heads={cfg.n_kv_heads}")
+    return sizes
+
+
 class TrainPipeline:
     """Driver handle for an MPMD pipeline-parallel training run.
 
@@ -476,14 +609,22 @@ class TrainPipeline:
     model state — stages own their weights; the driver only moves token
     microbatches and reads reports.
 
-    Each stage is an actor holding ``num_gpus`` of a card (1: a card of
-    its own; 0.5: two stages time-slice one card); without enough GPUs
-    in the cluster the constructor raises at once.  ``device="cpu"``
-    builds CPU stages instead.  ``initial_params`` is a full
+    Each stage runs on ``n`` devices: ``devices_per_stage``, or the
+    product of ``stage_mesh`` when it is 0 (a ``-1`` axis of
+    ``stage_mesh`` fills ``devices_per_stage``).  Inside a stage the
+    mesh's fsdp, tp, sp and dp lay the stage out as the single program
+    lays out the whole model.  A stage of one device is one actor
+    holding ``num_gpus`` of a card (1: a card of its own; 0.5: two
+    stages time-slice one card).  A stage of ``n > 1`` is ``n`` actors,
+    one whole card each (``num_gpus`` >= 1), joined in a process group
+    of the stage's own; the rings carry whole microbatches, each rank
+    reads them and takes its slice, and rank 0 writes the stage's
+    gathered output.  Without enough GPUs in the cluster the
+    constructor raises at once.  ``device="cpu"`` builds CPU stages
+    instead (gloo inside a stage).  ``initial_params`` is a full
     :class:`LlamaModel` state dict (``models.convert.params_from_flax``
     of a flax tree, say); without it each stage draws its slice of
-    ``LlamaModel(cfg, seed=rng_seed)``'s init.  ``stage_mesh`` may name
-    only size-1 axes: a stage is one process on one device.
+    ``LlamaModel(cfg, seed=rng_seed)``'s init.
 
     Checkpointing cost: with ``max_restarts > 0``, ``save_every``
     defaults to 1 — every optimizer step each stage copies params
@@ -499,6 +640,7 @@ class TrainPipeline:
                  stage_mesh: Optional[Dict[str, int]] = None,
                  learning_rate: float = 3e-4, rng_seed: int = 0,
                  initial_params: Optional[Dict[str, Any]] = None,
+                 devices_per_stage: int = 0,
                  num_gpus: float = 1.0, device: Optional[str] = None,
                  resources_per_stage: Optional[Dict[str, float]] = None,
                  max_restarts: int = 0, save_every: Optional[int] = None,
@@ -516,16 +658,13 @@ class TrainPipeline:
         self.seq_len = int(seq_len)
         self._lr = float(learning_rate)
         self._rng_seed = int(rng_seed)
-        self._stage_mesh = dict(stage_mesh or {})
-        self._stage_mesh.pop("pp", None)  # pp is the actor axis here
-        if math.prod(self._stage_mesh.values()) > 1:
-            what = ("sp > 1 (ring attention inside a stage)"
-                    if self._stage_mesh.get("sp", 1) > 1 else
-                    f"stage_mesh {self._stage_mesh}")
-            raise NotImplementedError(
-                f"{what}: each pipeline stage is one process on one card, "
-                f"or a share of one (ROADMAP A6 brings stages over several "
-                f"cards)")
+        axes = dict(stage_mesh or {})
+        axes.pop("pp", None)  # pp is the actor axis here
+        self._stage_mesh = _resolve_stage_mesh(cfg, axes,
+                                               int(devices_per_stage),
+                                               self.microbatch_size,
+                                               self.seq_len)
+        self.ranks_per_stage = math.prod(self._stage_mesh.values())
         self._num_gpus = float(num_gpus)
         self._device = device
         self._ranges = partition_layers(cfg, pp)
@@ -543,6 +682,7 @@ class TrainPipeline:
         self._error: Optional[BaseException] = None
         self._monitor_stop = threading.Event()
         self._monitor: Optional[threading.Thread] = None
+        self._reaper: Optional[threading.Thread] = None
         self._local_step = 0     # steps within the current loop generation
         self._global_step = 0
         self._in_writer = None
@@ -555,6 +695,7 @@ class TrainPipeline:
         try:
             self._create_actors(initial_params, resources_per_stage,
                                 max_restarts)
+            self._form_groups(timeout=compile_timeout)
             if self._save_every > 0:
                 for h in self._handles:  # step-0 snapshots so resume()
                     self._ctl(h, {"op": "save_now"})  # always has a base
@@ -568,26 +709,38 @@ class TrainPipeline:
 
     # -------------------------------------------------------------- setup
 
+    def stage_handles(self, stage: int) -> List[Any]:
+        """The actors of ``stage``, rank 0 first."""
+        n = self.ranks_per_stage
+        return self._handles[stage * n:(stage + 1) * n]
+
     def _create_actors(self, initial_params, resources,
                        max_restarts) -> None:
         import ray_tpu_torch
         from ray_tpu_torch._private.errors import SchedulingError
 
+        n = self.ranks_per_stage
         cls = ray_tpu_torch.remote(PipelineStage)
         # a second exec thread serves control ops (info/snapshot/
         # restore probes) while the 1F1B loop pins the first
         opts: Dict[str, Any] = {"max_restarts": int(max_restarts),
                                 "max_concurrency": 2}
         if self._device is None:
+            if n > 1 and self._num_gpus < 1:
+                raise ValueError(
+                    f"a stage over {n} devices takes a whole card a rank "
+                    f"(nccl puts no two ranks of a group on one card); "
+                    f"num_gpus={self._num_gpus:g}")
             # fail at once rather than wait for leases the cluster can
             # never grant; nothing falls back to the CPU
-            need = self._num_gpus * self.pp
+            need = self._num_gpus * self.pp * n
             have = ray_tpu_torch.cluster_resources().get("GPU", 0)
             if need > have:
                 raise SchedulingError(
                     f"TrainPipeline needs {need:g} GPU for {self.pp} "
-                    f"stages of num_gpus={self._num_gpus:g} but the cluster "
-                    f"has {have:g}; pass device='cpu' to train on the CPU")
+                    f"stages of {n} rank(s) at num_gpus={self._num_gpus:g} "
+                    f"but the cluster has {have:g}; pass device='cpu' to "
+                    f"train on the CPU")
             opts["num_gpus"] = self._num_gpus
         if resources:
             opts["resources"] = dict(resources)
@@ -596,7 +749,7 @@ class TrainPipeline:
             spec = {
                 "stage": s, "n_stages": self.pp, "cfg": self.cfg,
                 "ranges": list(self._ranges),
-                "mesh_axes": dict(self._stage_mesh),
+                "mesh_axes": dict(self._stage_mesh), "n_ranks": n,
                 "microbatch_size": self.microbatch_size,
                 "seq_len": self.seq_len,
                 "num_microbatches": self.num_microbatches,
@@ -612,7 +765,34 @@ class TrainPipeline:
             if initial_params is not None:
                 spec["initial_params"] = slice_params_for_stage(
                     initial_params, self._ranges, s)
-            self._handles.append(cls.options(**opts).remote(spec))
+            for r in range(n):
+                self._handles.append(
+                    cls.options(**opts).remote({**spec, "rank": r}))
+
+    def _form_groups(self, timeout: float) -> None:
+        """Join each stage's ranks in a process group of their own, at a
+        coordinator on its rank 0's node, and build the stage on it.
+        Stages of one rank need none."""
+        import ray_tpu_torch
+        from ray_tpu_torch import api as _api
+
+        if self.ranks_per_stage == 1:
+            return
+        deadline = time.monotonic() + timeout
+        w = _api._worker()
+        refs = []
+        for s in range(self.pp):
+            handles = self.stage_handles(s)
+            coordinator = self._ctl(
+                handles[0], {"op": "rendezvous"},
+                timeout=max(1.0, deadline - time.monotonic()))["coordinator"]
+            # every rank at once: each waits in init for the others
+            refs += [w.submit_actor_task(
+                h._actor_id, PIPELINE_CTL_METHOD,
+                ({"op": "join", "coordinator": coordinator},), {})[0]
+                for h in handles]
+        ray_tpu_torch.get(refs,
+                          timeout=max(1.0, deadline - time.monotonic()))
 
     def _ctl(self, handle, req: Dict[str, Any], timeout: float = 120.0):
         import ray_tpu_torch
@@ -642,23 +822,24 @@ class TrainPipeline:
             xfer_port = 0
         driver_info = {"node_id": w.node_id, "agent": list(w.agent_addr),
                        "xfer_port": xfer_port}
+        S, m, n = self.pp, self.num_microbatches, self.ranks_per_stage
+        # an entity is the driver or a (stage, rank)
         entities = {"driver": driver_info,
-                    **{s: infos[s] for s in range(self.pp)}}
+                    **{(i // n, i % n): info for i, info in enumerate(infos)}}
         node_table = {i["node_id"]: {"agent": i["agent"],
                                      "xfer_port": i["xfer_port"]}
                       for i in entities.values()}
 
         # activations and activation-grads travel in the model's compute
-        # dtype (bf16 by default, but cfg.dtype is a public knob)
+        # dtype (bf16 by default, but cfg.dtype is a public knob), whole
         itemsize_act = torch.empty((), dtype=self.cfg.dtype).element_size()
         act_bytes = self.microbatch_size * self.seq_len \
             * int(self.cfg.dim) * itemsize_act
         tok_bytes = self.microbatch_size * self.seq_len * 8
-        S, m = self.pp, self.num_microbatches
         gen = self._generation
 
-        def pad(n: int) -> int:
-            return n + n // 8 + 8192  # serialization header + margin
+        def pad(k: int) -> int:
+            return k + k // 8 + 8192  # serialization header + margin
 
         def make_spec(name, writer, readers, depth, slot) -> ch.ChannelSpec:
             wnode = entities[writer]["node_id"]
@@ -671,14 +852,20 @@ class TrainPipeline:
                 reader_nodes=rnodes,
                 nodes={nid: node_table[nid] for nid in involved})
 
+        def ranks(s: int) -> List[Tuple[int, int]]:
+            return [(s, r) for r in range(n)]
+
         in_depth = max(2, min(m, 64))
-        input_spec = make_spec("in", "driver", [0, S - 1], in_depth,
-                               tok_bytes)
-        act_specs = [make_spec(f"act{i}", i, [i + 1], self._act_depth,
-                               act_bytes) for i in range(S - 1)]
-        grad_specs = [make_spec(f"grad{i}", i + 1, [i], self._grad_depth,
-                                act_bytes) for i in range(S - 1)]
-        rep_specs = [make_spec(f"rep{i}", i, ["driver"], 4, 32768)
+        # readers: the first stage's ranks, then the last stage's
+        input_spec = make_spec("in", "driver", ranks(0) + ranks(S - 1),
+                               in_depth, tok_bytes)
+        act_specs = [make_spec(f"act{i}", (i, 0), ranks(i + 1),
+                               self._act_depth, act_bytes)
+                     for i in range(S - 1)]
+        grad_specs = [make_spec(f"grad{i}", (i + 1, 0), ranks(i),
+                                self._grad_depth, act_bytes)
+                      for i in range(S - 1)]
+        rep_specs = [make_spec(f"rep{i}", (i, 0), ["driver"], 4, 32768)
                      for i in range(S)]
         for spec in [input_spec] + act_specs + grad_specs + rep_specs:
             self._channels.create(spec)
@@ -692,26 +879,30 @@ class TrainPipeline:
         self._rep_readers = [ch.ChannelReader(spec, 0)
                              for spec in rep_specs]
 
+        def read(spec, index):
+            return {"spec": dataclasses.asdict(spec), "index": index}
+
+        def write(spec):
+            return {"spec": dataclasses.asdict(spec)}
+
         self._loop_refs = []
-        for s, h in enumerate(self._handles):
-            chans: Dict[str, Any] = {
-                "report": {"spec": dataclasses.asdict(rep_specs[s])}}
-            if s == 0 or s == S - 1:
-                chans["input"] = {
-                    "spec": dataclasses.asdict(input_spec),
-                    "index": 0 if s == 0 else 1}
+        for i, h in enumerate(self._handles):
+            s, r = divmod(i, n)
+            chans: Dict[str, Any] = {}
+            if s == 0:
+                chans["input"] = read(input_spec, r)
+            if s == S - 1:
+                chans["input"] = read(input_spec, n + r)
             if s > 0:
-                chans["act_in"] = {
-                    "spec": dataclasses.asdict(act_specs[s - 1]),
-                    "index": 0}
-                chans["grad_out"] = {
-                    "spec": dataclasses.asdict(grad_specs[s - 1])}
+                chans["act_in"] = read(act_specs[s - 1], r)
             if s < S - 1:
-                chans["act_out"] = {
-                    "spec": dataclasses.asdict(act_specs[s])}
-                chans["grad_in"] = {
-                    "spec": dataclasses.asdict(grad_specs[s]),
-                    "index": 0}
+                chans["grad_in"] = read(grad_specs[s], r)
+            if r == 0:
+                chans["report"] = write(rep_specs[s])
+                if s > 0:
+                    chans["grad_out"] = write(grad_specs[s - 1])
+                if s < S - 1:
+                    chans["act_out"] = write(act_specs[s])
             plan = {"channels": chans, "start_step": start_step,
                     "save_every": self._save_every}
             self._loop_refs.append(w.submit_actor_task(
@@ -741,24 +932,86 @@ class TrainPipeline:
             if self._torn_down or stop.is_set():
                 return
             for ref in ready:
+                failed = refs.index(ref)
                 try:
                     ray_tpu_torch.get(ref, timeout=0)
                     # a loop returning outside teardown is itself fatal:
                     # the pipeline can no longer make progress
                     self._fail(PipelineError(
-                        "pipeline stage loop exited unexpectedly"))
+                        "pipeline stage loop exited unexpectedly"), failed)
                 except Exception as e:  # noqa: BLE001 — stage death
                     self._fail(e if isinstance(e, RayError) else
-                               PipelineError(f"pipeline stage failed: {e}"))
+                               PipelineError(f"pipeline stage failed: {e}"),
+                               failed)
                 return
 
-    def _fail(self, error: BaseException) -> None:
+    def _fail(self, error: BaseException,
+              failed: Optional[int] = None) -> None:
+        """Poison every channel, so every party blocked on one raises.
+        ``failed`` is the index of the rank whose loop ended, if one
+        did."""
         if self._error is not None:
             return
         from ray_tpu_torch.dag import channel as ch
 
         self._error = error
         self._channels.poison_all(ch.pickle_error(error))
+        if self.ranks_per_stage > 1:
+            self._reaper = threading.Thread(
+                target=self._stop_stuck_ranks,
+                args=(failed, list(self._loop_refs)),
+                name=f"rt-pipeline-reaper-{self._run_id}", daemon=True)
+            self._reaper.start()
+
+    def _stop_stuck_ranks(self, failed: Optional[int],
+                          refs: List[Any]) -> None:
+        """A rank blocked inside a collective of its stage's group is
+        out of the poisoned channels' reach: end the process of every
+        peer of the failed rank whose loop is still running, at once,
+        and of every other rank whose loop has not returned within
+        ``STUCK_RANK_GRACE_S`` (a force-cancel of its loop task ends
+        its worker).  A rank so ended restarts where ``max_restarts``
+        allows, and ``resume`` forms its group again."""
+        import ray_tpu_torch
+
+        n = self.ranks_per_stage
+        peers: List[int] = []
+        if failed is not None:
+            first = failed - failed % n
+            peers = [i for i in range(first, first + n) if i != failed]
+        rest = [i for i in range(len(refs))
+                if i not in peers and i != failed]
+
+        def end_if_running(i: int) -> None:
+            ready, _ = ray_tpu_torch.wait([refs[i]], timeout=0)
+            if not ready:
+                ray_tpu_torch.cancel(refs[i], force=True)
+
+        try:
+            for i in peers:
+                end_if_running(i)
+            ray_tpu_torch.wait([refs[i] for i in rest],
+                               num_returns=len(rest),
+                               timeout=STUCK_RANK_GRACE_S)
+            for i in rest:
+                end_if_running(i)
+        except Exception:  # noqa: BLE001 — the driver is shutting down
+            pass
+
+    def _ended_loop_error(self, timeout: float = 2.0
+                          ) -> Optional[BaseException]:
+        """The error of a stage loop that has ended (waiting up to
+        ``timeout`` for one to end), or None."""
+        import ray_tpu_torch
+
+        ready, _ = ray_tpu_torch.wait(list(self._loop_refs), num_returns=1,
+                                      timeout=timeout)
+        for ref in ready:
+            try:
+                ray_tpu_torch.get(ref, timeout=0)
+            except Exception as e:  # noqa: BLE001 — handed to the caller
+                return e
+        return None
 
     def _check_failure(self) -> None:
         if self._error is not None:
@@ -780,6 +1033,7 @@ class TrainPipeline:
         import numpy as np
 
         from ray_tpu_torch._private.metrics import pipeline_metrics
+        from ray_tpu_torch.dag import channel as ch
 
         self._check_failure()
         tokens = np.ascontiguousarray(tokens)
@@ -813,9 +1067,16 @@ class TrainPipeline:
             # loss attribution silently shifted by one.  Fail the
             # pipeline instead; checkpointed runs recover via resume().
             if self._error is None and not self._torn_down:
-                self._fail(e if isinstance(e, RayError) else
-                           PipelineError(f"step {want} failed mid-flight "
-                                         f"(stage reports unread): {e}"))
+                # a report ring closes when its stage's loop ends: that
+                # loop's own error says why
+                cause = (self._ended_loop_error()
+                         if isinstance(e, ch.ChannelClosedError) else None)
+                self._fail(cause or (
+                    e if isinstance(e, RayError) else
+                    PipelineError(f"step {want} failed mid-flight "
+                                  f"(stage reports unread): {e}")))
+                if cause is not None:
+                    raise cause from e
             raise
         wall = time.perf_counter() - t0
         self._local_step = want
@@ -844,9 +1105,10 @@ class TrainPipeline:
     # ----------------------------------------------------------- recovery
 
     def resume(self, timeout: float = 300.0) -> int:
-        """After a stage death: roll every stage back to the newest
-        COMMON snapshot step, rebuild fresh channels, reinstall the
-        loops.  Returns the resumed step.  Requires checkpointing
+        """After a stage death: form each stage's process group again
+        (stages over several devices), roll every rank back to the
+        newest COMMON snapshot step, rebuild fresh channels, reinstall
+        the loops.  Returns the resumed step.  Requires checkpointing
         (``save_every > 0``) and restartable actors."""
         import ray_tpu_torch
         from ray_tpu_torch import api as _api
@@ -861,6 +1123,8 @@ class TrainPipeline:
                 "with max_restarts>0 (or save_every>0)")
         deadline = time.monotonic() + timeout
         self._monitor_stop.set()
+        if self._reaper is not None:
+            self._reaper.join(timeout=max(1.0, deadline - time.monotonic()))
         # old loops are dead or draining after the poison; wait them out
         if self._loop_refs:
             ray_tpu_torch.wait(self._loop_refs, num_returns=len(self._loop_refs),
@@ -883,6 +1147,7 @@ class TrainPipeline:
                         f"stage actor {h._actor_id[:12]} did not restart "
                         f"(state {info.get('state')})")
                 time.sleep(0.2)
+        self._form_groups(timeout=max(1.0, deadline - time.monotonic()))
         step_sets = []
         for h in self._handles:
             reply = self._ctl(h, {"op": "snapshot_steps"},

@@ -34,6 +34,15 @@ def _node_ip() -> str:
     return w.address[0] if w is not None else "127.0.0.1"
 
 
+def _free_port() -> int:
+    """A port that was free on this node a moment ago."""
+    s = socket.socket()
+    s.bind(("", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 class TrainWorker:
     """Actor hosting one rank of the SPMD gang. The user's train loop
     runs in a thread so poll() stays responsive (actor methods execute
@@ -52,11 +61,7 @@ class TrainWorker:
                 "ip": _node_ip()}
 
     def free_port(self) -> int:
-        s = socket.socket()
-        s.bind(("", 0))
-        port = s.getsockname()[1]
-        s.close()
-        return port
+        return _free_port()
 
     def setup_env(self, env: Dict[str, str]) -> bool:
         os.environ.update(env)

@@ -41,8 +41,6 @@ from ray_tpu.train import pipeline as jp
 from ray_tpu_torch._private.errors import SchedulingError
 from ray_tpu_torch.models import llama as tl
 from ray_tpu_torch.models.convert import params_from_flax
-from ray_tpu_torch.parallel.mesh import Mesh, MeshSpec
-from ray_tpu_torch.train import gspmd as tg
 from ray_tpu_torch.train.pipeline import (PipelineError, PipelineStage,
                                           TrainPipeline, bubble_pct,
                                           in_flight_bound, one_f_one_b,
@@ -234,21 +232,6 @@ def test_stage_state_round_trips_through_save_and_restore():
     for (name, p), q in zip(a._st["params"].named_parameters(),
                             b._st["params"].parameters()):
         assert torch.equal(p, q), name
-
-
-def test_stage_mesh_over_several_devices_raises():
-    cfg = tl.LlamaConfig.tiny()
-    with pytest.raises(NotImplementedError, match="sp > 1"):
-        TrainPipeline(cfg, pp=2, microbatch_size=2, num_microbatches=2,
-                      seq_len=32, stage_mesh={"sp": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TrainPipeline(cfg, pp=2, microbatch_size=2, num_microbatches=2,
-                      seq_len=32, stage_mesh={"tp": 2}, device="cpu")
-    two = Mesh((torch.device("cpu"),), MeshSpec(fsdp=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tg.build_llama_stage_state(cfg, two, (0, 1), first=True,
-                                   last=False, microbatch_size=2,
-                                   seq_len=32, num_microbatches=2)
 
 
 # ------------------------------------------------------------ e2e pipeline

@@ -208,3 +208,50 @@ def checkpoint_resume(path: str, tokens: np.ndarray,
     return {"straight": straight, "resumed": resumed, "step": state["step"],
             "params_equal": same, "moments_equal": moments,
             "local_param_bytes": local_bytes, "files": files}
+
+
+def pipeline_stage_cases(inputs: str, params: str,
+                         spec: Dict[str, int]) -> Dict[str, Any]:
+    """Both stages of a 2-way split of tiny (fp32) on a stage mesh of
+    ``spec`` over this group, from the flax init: the first stage's
+    forward and backward (output, parameter grads), the last stage's
+    loss and backward (loss, gx, parameter grads).  Every value is
+    gathered whole; so is every grad (``full_tensor``)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel import MeshSpec, make_mesh
+    from ray_tpu_torch.train.gspmd import build_llama_stage_state
+    from ray_tpu_torch.train.pipeline import partition_layers
+
+    cfg = _tiny()
+    mesh = make_mesh(MeshSpec(**spec))
+    with np.load(inputs) as f:
+        data = dict(f)
+    tokens = data["tokens"]
+    ranges = partition_layers(cfg, 2)
+    out: Dict[str, Any] = {"index": _index(mesh)}
+    for s, layers in enumerate(ranges):
+        st = build_llama_stage_state(
+            cfg, mesh, layers, first=s == 0, last=s == 1,
+            microbatch_size=tokens.shape[0], seq_len=tokens.shape[1],
+            num_microbatches=1)
+        p = st["params"]
+        load_flax(p, params, cfg)
+        res: Dict[str, Any] = {}
+        if s == 0:
+            x = st["shard_value"](tokens)
+            res["y"] = st["gather_value"](st["fwd"](p, x)).numpy()
+            gx = st["bwd"](p, x, st["shard_value"](data["gy"]))
+            res["gx_is_none"] = gx is None
+        else:
+            loss, gx = st["loss_bwd"](p, st["shard_value"](data["x"]),
+                                      st["whole_value"](tokens))
+            res["loss"] = float(loss)
+            res["gx"] = st["gather_value"](gx).numpy()
+        st["reduce_grads"](p)
+        res["grads"] = {
+            name: (q.grad.full_tensor() if isinstance(q.grad, DTensor)
+                   else q.grad).numpy()
+            for name, q in p.named_parameters()}
+        out[f"stage{s}"] = res
+    return out
