@@ -43,7 +43,7 @@ learning rate, whose first losses must be the train phase's (and the
 3e-4 trial's the trainer phase's); the train phase's configuration
 through ``TorchTrainer`` fed by a ``data.from_numpy`` Dataset whose
 first batch is the train batch; and a placement group of two half-card
-bundles whose actors both run on card "0", after whose removal a
+bundles whose actors both run on one card, after whose removal a
 whole-card actor starts.  Before them, one PPO learner update on the card over a
 CartPole-shaped rollout against the same update on the CPU.  Then
 serving through that runtime, behind the HTTP proxy:
@@ -66,7 +66,8 @@ reruns it alone and the four losses equal an uninterrupted run's bit for
 bit; then an autoscaler whose head advertises no card launches a
 ``{"GPU": 1}`` node for a pending actor, which trains bench_1b 3 steps
 on card "0" (the train phase's losses again), and terminates the node
-once it is idle.  Each phase prints one JSON line; a failed check raises, so the script exits
+once it is idle.  These cluster-operations clusters see one card: on a
+machine with several, the first alone.  Each phase prints one JSON line; a failed check raises, so the script exits
 non-zero.  The last lines are the card's name and power limit (from
 nvidia-smi), then {"ok": true, "device": {...}}.
 
@@ -77,6 +78,15 @@ process group of its own (nccl), whose first loss must be the train
 phase's within the dist_train bound of its layout, whose losses must
 fall, whose every rank must run on a card of its own and launch flash
 as its schedule says; on fewer cards it prints that it did not run.
+On four cards, ``dist_train`` also runs at the reference dry run's
+combined layouts, fsdp=2 x tp=2 and sp=2 x tp=2 (``dist_layouts``):
+each first loss within the sharded-math bound of the train phase's,
+flash twice a layer a step at fsdp2 x tp2 and never at sp2 x tp2.  And
+on every machine, ``dryrun_multichip`` calls
+``ray_tpu_torch.entry.dryrun_multichip(n)`` with n the visible card
+count (``LlamaConfig.tiny()`` over the reference harness's mesh, one
+rank a card over nccl), checks the harness's asserts and a card per
+rank, and at n >= 8 the pipeline leg; on fewer cards it says so.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 
@@ -90,6 +100,11 @@ visible card (for a machine with several cards).
 
 runs the ``train`` phase as the reference and then ``pipeline_mesh`` on
 each stage layout given (four cards).
+
+    python3 chip_smoke.py --dryrun-only [n]
+
+runs ``dryrun_multichip`` alone over n cards (default: every visible
+one).
 """
 
 from __future__ import annotations
@@ -338,7 +353,10 @@ def phase_kernel_flash(gen) -> dict:
              # a stage rank's microbatch at fsdp=2 (half the rows) and
              # at tp=2 (half the heads)
              ("stage_rank_fsdp2", 1, 1024, 12, 4, 128),
-             ("stage_rank_tp2", 2, 1024, 6, 2, 128)]
+             ("stage_rank_tp2", 2, 1024, 6, 2, 128),
+             # a rank's batch of dist_train at fsdp=2 x tp=2: half the
+             # rows, half the heads
+             ("dist_rank_fsdp2_tp2", 4, 1024, 6, 2, 128)]
     for label, b, s, h, hkv, d in cases:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, s, h, d), generator=gen,
@@ -987,14 +1005,16 @@ def phase_dist_train(train: dict, spec: dict = None) -> int:
     """The train phase's model, batch and steps through
     ``init_distributed``, ``make_mesh(MeshSpec(**spec))`` (default
     ``fsdp=-1``) and the sharded ``build_llama_train_state``, one
-    spawned rank per card.  A rank that raises or dies fails the
-    phase."""
+    spawned rank per card: the product of ``spec``'s sizes, or every
+    visible card where an axis is -1.  A rank that raises or dies fails
+    the phase."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    world = torch.cuda.device_count()
     spec = spec or {"fsdp": -1}
+    world = (torch.cuda.device_count() if -1 in spec.values()
+             else math.prod(spec.values()))
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "dist_train.json")
         ctx = mp.start_processes(_dist_train_rank,
@@ -1049,6 +1069,64 @@ def phase_dist_train(train: dict, spec: dict = None) -> int:
              if profile["device_ms"] else None),
          step_profile=profile)
     return r["flash_launches"]
+
+
+# The reference dry run's combined layouts at bench_1b's full width:
+# fsdp2 x tp2 (FSDP2 over a 1-D fsdp mesh of size 2 beside tp) and
+# sp2 x tp2 (ring attention beside tp, the grads of the sp replicas
+# added by an all-reduce), each on four cards.
+DIST_LAYOUTS = ({"fsdp": 2, "tp": 2}, {"sp": 2, "tp": 2})
+DIST_LAYOUT_CARDS = 4
+
+
+def phase_dist_layouts(train: dict) -> int:
+    """``dist_train`` at each of DIST_LAYOUTS on DIST_LAYOUT_CARDS
+    cards; on fewer it prints that it did not run.  Returns rank 0's
+    flash launches."""
+    cards = torch.cuda.device_count()
+    if cards < DIST_LAYOUT_CARDS:
+        emit("dist_layouts", ran=False, cards_seen=cards,
+             cards_needed=DIST_LAYOUT_CARDS, layouts=list(DIST_LAYOUTS),
+             reason="a whole card a rank")
+        return 0
+    return sum(phase_dist_train(train, spec) for spec in DIST_LAYOUTS)
+
+
+def phase_dryrun_multichip(n: int = None) -> None:
+    """``ray_tpu_torch.entry.dryrun_multichip(n)`` as a user calls it,
+    n the visible card count unless given: ``LlamaConfig.tiny()`` over
+    the reference harness's mesh, one rank a card over nccl, two steps;
+    at n >= 8 the {pp:2, fsdp:2, tp:n/4} pipeline too.  Checks the
+    harness's asserts and that each rank ran on a card of its own.
+    tiny's head_dim of 16 takes dense attention, so no rank launches
+    flash (the JAX package routes it so too)."""
+    from ray_tpu_torch.entry import dryrun_multichip
+
+    n = n or torch.cuda.device_count()
+    r = dryrun_multichip(n)
+    loss, loss2 = r["losses"]
+    check(math.isfinite(loss) and loss > 0, f"dryrun loss {loss}")
+    check(loss2 < 1.5 * loss, f"dryrun second loss {loss2} vs {loss}")
+    check(math.prod(r["mesh"].values()) == n == len(r["ranks"]),
+          f"dryrun mesh {r['mesh']} over {len(r['ranks'])} ranks")
+    cards = [x["card"] for x in r["ranks"]]
+    check(all(c is not None for c in cards), "dryrun: a rank not on a card")
+    for key in ("uuid", "pci_bus_id"):
+        seen = [c[key] for c in cards]
+        check(len(set(seen)) == n, f"dryrun: ranks share a card: {seen}")
+    launches = [x["kernel_launches"] for x in r["ranks"]]
+    check(all(x["flash_attention"] == 0 for x in launches),
+          f"dryrun: tiny launched flash: {launches}")
+    pipe = r["pipeline"]
+    if n >= 8:
+        check(pipe["losses"][-1] < pipe["losses"][0],
+              f"dryrun pipeline loss did not fall: {pipe['losses']}")
+    emit("dryrun_multichip", n=n, config="tiny", mesh=r["mesh"],
+         loss_first=loss, loss_second=loss2, line=r["line"],
+         wall_s=r["wall_s"], ranks=r["ranks"],
+         pipeline=pipe if pipe is not None else {
+             "ran": False, "reason": f"the pipeline leg needs n >= 8 "
+                                     f"cards; this machine has {n}"})
 
 
 # ring_blocks: relative L2 error of each tensor against dense attention
@@ -1737,10 +1815,10 @@ class BundleProbe:
 
 
 def phase_placement_group() -> None:
-    """Two half-card bundles STRICT_PACKed on the one card, an actor in
-    each: both see card "0" and allocate on it.  Removing the group
-    gives the shares back: a ``num_gpus=1`` actor then starts within
-    PG_RELEASE_TIMEOUT_S."""
+    """Two half-card bundles STRICT_PACKed on one card, an actor in
+    each: both see that one card ("0" on a one-card machine) and
+    allocate on it.  Removing the group gives the shares back: a
+    ``num_gpus=1`` actor then starts within PG_RELEASE_TIMEOUT_S."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.util import placement_group, remove_placement_group
 
@@ -1755,8 +1833,9 @@ def phase_placement_group() -> None:
               .remote() for i in range(len(bundles))]
     infos = rt.get([p.info.remote() for p in probes],
                    timeout=RUNTIME_TIMEOUT_S)
+    card = infos[0]["cuda_visible_devices"]
     for info in infos:
-        check(info["cuda_visible_devices"] == "0"
+        check(info["cuda_visible_devices"] == card and "," not in card
               and info["device_count"] == 1
               and info["device_name"] == torch.cuda.get_device_name(0)
               and info["allocated_on"] == "cuda:0"
@@ -1768,7 +1847,8 @@ def phase_placement_group() -> None:
     after = rt.get(whole.info.remote(), timeout=PG_RELEASE_TIMEOUT_S)
     whole_s = time.perf_counter() - t0
     rt.kill(whole)
-    check(after["cuda_visible_devices"] == "0",
+    check(after["device_count"] == 1 and after["cuda_visible_devices"]
+          and "," not in after["cuda_visible_devices"],
           f"placement_group: the whole-card actor saw {after}")
     emit("placement_group", bundles=bundles, strategy="STRICT_PACK",
          ready_s=ready_s, bundle_actors=infos,
@@ -3010,6 +3090,22 @@ def phase_cluster_ops(train: dict) -> int:
     and checkpoints go to a temporary directory.  Returns the flash
     launches made in the jobs, the actors and the workflow's steps, and
     in the driver's uninterrupted run the workflow is held against."""
+    # these cells hold one card (job B holds "the card", the dashboard
+    # counts it): on a machine with more, the clusters they start see
+    # its first card alone (the driver's CUDA is initialised already)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if torch.cuda.device_count() > 1:
+        os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]
+    try:
+        return _cluster_ops(train)
+    finally:
+        if visible is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+
+
+def _cluster_ops(train: dict) -> int:
     import tempfile
 
     import ray_tpu_torch as rt
@@ -3079,6 +3175,11 @@ def main(argv) -> int:
             phase_dist_train(train, _mesh_spec(arg))
         _finish(smi)
         return 0
+    if argv[:1] == ["--dryrun-only"]:
+        # the dry run alone, over n cards (default: every visible one)
+        phase_dryrun_multichip(int(argv[1]) if argv[1:] else None)
+        _finish(smi)
+        return 0
     if argv[:1] == ["--pipeline-mesh-only"]:
         # the train phase as the reference, then pipeline_mesh on each
         # stage layout given ("fsdp=2" ...)
@@ -3097,6 +3198,8 @@ def main(argv) -> int:
     phase_train_checkpoint()
     phase_ring_blocks(gen)
     flash_launches += phase_dist_train(train)
+    flash_launches += phase_dist_layouts(train)
+    phase_dryrun_multichip()
     phase_rl_learner()
     flash_launches += phase_runtime_and_trainers(train)
     flash_launches += phase_pipeline_mesh(train, PIPE_MESH_LAYOUTS)

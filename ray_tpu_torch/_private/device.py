@@ -7,7 +7,7 @@ silent fall back to the CPU.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -25,3 +25,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+def card_info(device: torch.device) -> Optional[Dict[str, Any]]:
+    """The card a CUDA ``device`` runs on (name, uuid, PCI bus), so that
+    callers can tell whether two processes share one; None for another
+    device."""
+    if device.type != "cuda":
+        return None
+    props = torch.cuda.get_device_properties(device)
+    return {"name": props.name, "uuid": str(props.uuid),
+            "pci_bus_id": getattr(props, "pci_bus_id", None)}

@@ -43,14 +43,57 @@ class _Ref:
         self.created = time.monotonic()
 
 
+class _CounterLock:
+    """The counter's lock, which tells whether the calling thread holds
+    it and runs, once that thread releases it, the work deferred while
+    it was held: a garbage collection inside the lock that finalises an
+    ObjectRef must not wait for the lock its own thread holds.  An RLock
+    only so that ``_is_owned`` answers atomically with the acquire; the
+    counter never re-enters it."""
+
+    __slots__ = ("_lock", "deferred")
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self.deferred: List[Callable[[], None]] = []
+
+    def held_here(self) -> bool:
+        return self._lock._is_owned()
+
+    def __enter__(self):
+        self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        if self._lock._is_owned():
+            return
+        # a collection during one of these may defer more: drain to empty
+        while self.deferred:
+            try:
+                self.deferred.pop(0)()
+            except Exception:  # noqa: BLE001 — ignored, as in __del__
+                pass
+
+
 class ReferenceCounter:
     """Thread-safe; `on_release(oid)` fires (outside the lock) when an
     *owned* object's count reaches zero."""
 
     def __init__(self, on_release: Callable[[str], None]):
-        self._lock = threading.Lock()
+        self._lock = _CounterLock()
         self._refs: Dict[str, _Ref] = {}
         self._on_release = on_release
+
+    def held_here(self) -> bool:
+        """True in the thread that holds this counter's lock: where a
+        collection inside the lock finalises an ObjectRef."""
+        return self._lock.held_here()
+
+    def defer(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` once the holding thread releases the lock (call
+        only where :meth:`held_here`)."""
+        self._lock.deferred.append(fn)
 
     # ---- local references --------------------------------------------------
 

@@ -37,7 +37,6 @@ COPIED: List[str] = [
     "_native/copyfast.c",
     "_private/object_store.py",
     "_private/object_ref.py",
-    "_private/reference_count.py",
     "_private/object_directory.py",
     "_private/object_transfer.py",
     "_private/streaming.py",
@@ -116,6 +115,9 @@ PORTED: Dict[str, str] = {
     "_private/memory_store.py":
         "an evict reached from a GC inside the store's own lock is "
         "deferred, not deadlocked",
+    "_private/reference_count.py":
+        "an ObjectRef finalised by a GC inside the counter's own lock is "
+        "counted down once the lock is released, not deadlocked",
     "api.py":
         "num_tpus= goes; num_gpus= maps to the GPU resource",
     "train/session.py":

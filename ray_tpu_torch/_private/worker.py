@@ -1059,13 +1059,22 @@ class CoreWorker(IntrospectionRpcMixin, RpcHost):
     def unregister_local_ref(self, ref: ObjectRef) -> None:
         if self._shutdown:
             return
-        borrowed_done = self.rc.remove_local(ref.oid)
-        if borrowed_done and ref.owner_addr is not None:
+        oid, owner = ref.oid, ref.owner_addr
+        if self.rc.held_here():
+            # a collection inside the counter's own lock finalised this
+            # ref: count it down once the lock is released
+            self.rc.defer(lambda: self._unregister_local(oid, owner))
+            return
+        self._unregister_local(oid, owner)
+
+    def _unregister_local(self, oid: str, owner) -> None:
+        borrowed_done = self.rc.remove_local(oid)
+        if borrowed_done and owner is not None:
             # drop the cached inline value too: borrowed entries are only
             # evicted here (owner-side eviction runs in _free_object), so
             # keeping them would leak every borrowed small object
-            self.memory.evict(ref.oid)
-            self._spawn(self._send_remove_borrow(tuple(ref.owner_addr), ref.oid))
+            self.memory.evict(oid)
+            self._spawn(self._send_remove_borrow(tuple(owner), oid))
 
     async def _send_remove_borrow(self, owner: Tuple[str, int], oid: str):
         try:

@@ -69,6 +69,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ray_tpu_torch._private.device import card_info
 from ray_tpu_torch._private.errors import RayError
 # single source of truth for the system-method names: the worker defines
 # them (its _execute_inner dispatches on them); we submit with them
@@ -518,11 +519,7 @@ def run_stage_ctl(worker, instance, req: Dict[str, Any]) -> Dict[str, Any]:
     if op == "info":
         built = instance._st is not None
         device = instance._mesh.device if built else None
-        card = None
-        if built and device.type == "cuda":
-            props = torch.cuda.get_device_properties(device)
-            card = {"name": props.name, "uuid": str(props.uuid),
-                    "pci_bus_id": getattr(props, "pci_bus_id", None)}
+        card = card_info(device) if built else None
         return {"pid": os.getpid(), "step": instance._step,
                 "node_id": worker.node_id, "stage": instance.stage,
                 "rank": instance.rank, "device": str(device) if built else None,

@@ -146,6 +146,73 @@ def test_evict_from_a_collection_inside_the_store_lock_finishes(
     assert not store.known("new")
 
 
+# --------------------------------------------- the reference counter's lock
+
+
+def test_ref_finalised_inside_the_counters_lock_is_counted_down_after(
+        monkeypatch):
+    """A garbage collection that starts while ``add_local`` holds the
+    reference counter's lock (its allocation of a new record) frees the
+    last ObjectRef to a borrowed object, whose ``__del__`` unregisters
+    it on the same thread, as ObjectRef.__del__ does.  That must not
+    wait on the lock its own thread holds: ``add_local`` finishes, and
+    then the borrowed ref is counted down, its cached value evicted and
+    its owner told, as outside the lock."""
+    import gc
+    import threading
+    from types import SimpleNamespace
+
+    from ray_tpu_torch._private import reference_count
+    from ray_tpu_torch._private.worker import CoreWorker
+
+    worker = CoreWorker.__new__(CoreWorker)    # the ref plumbing only
+    worker._shutdown = False
+    worker.rc = reference_count.ReferenceCounter(lambda oid: None)
+    evicted, told = [], []
+    worker.memory = SimpleNamespace(evict=evicted.append)
+    worker._send_remove_borrow = lambda owner, oid: (owner, oid)
+    worker._spawn = told.append
+
+    class Ref:                      # stands in for the last ObjectRef
+        oid, owner_addr = "borrowed", ("owner", 1)
+
+        def __del__(self):
+            worker.unregister_local_ref(self)
+
+    worker.rc.add_local("borrowed", owned=False)
+    held = [Ref()]
+    inside, fired = [], []
+
+    def drop_last_ref(phase, _info):
+        if phase == "start" and held and inside:
+            fired.append(True)
+            held.pop()              # refcount 0: __del__ runs right here
+
+    class CollectingRef(reference_count._Ref):
+        __slots__ = ()
+
+        def __init__(self, owned):
+            inside.append(True)     # add_local holds the lock around this
+            gc.collect()            # a collection inside the allocation
+            inside.clear()
+            super().__init__(owned)
+
+    monkeypatch.setattr(reference_count, "_Ref", CollectingRef)
+    gc.callbacks.append(drop_last_ref)
+    try:
+        thread = threading.Thread(target=worker.rc.add_local,
+                                  args=("new", True), daemon=True)
+        thread.start()
+        thread.join(timeout=10)     # a regression fails here, not hangs
+    finally:
+        gc.callbacks.remove(drop_last_ref)
+    assert fired, "the collection never ran inside the lock"
+    assert not thread.is_alive(), "the ref deadlocked on the counter's lock"
+    assert worker.rc.count("borrowed") == 0 and worker.rc.count("new") == 1
+    assert evicted == ["borrowed"]
+    assert told == [(("owner", 1), "borrowed")]
+
+
 # ------------------------------------------------------------ the cluster
 
 

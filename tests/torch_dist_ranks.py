@@ -1,5 +1,6 @@
-"""Rank functions of tests/test_torch_distributed.py, run in spawned
-processes over gloo.
+"""Rank functions of tests/test_torch_distributed.py,
+tests/test_torch_pipeline_mesh.py and tests/test_torch_entry.py, run in
+spawned processes over gloo.
 
 This module imports torch, numpy and the port, and nothing of JAX, so a
 spawned rank never loads it.  Each job rendezvouses through a
@@ -254,4 +255,25 @@ def pipeline_stage_cases(inputs: str, params: str,
                    else q.grad).numpy()
             for name, q in p.named_parameters()}
         out[f"stage{s}"] = res
+    return out
+
+
+def dryrun_cases(params: str, tokens: np.ndarray,
+                 dtypes: List[str]) -> Dict[str, Any]:
+    """The dry run's rank body (``ray_tpu_torch.entry.dryrun_body``) on
+    this group, from the flax init and the given tokens, once per
+    compute dtype."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.entry import dryrun_body
+    from ray_tpu_torch.models.convert import params_from_flax
+
+    with np.load(params) as f:
+        tree = _flat_to_tree(dict(f))
+    out: Dict[str, Any] = {}
+    for dtype in dtypes:
+        cfg = _tiny(dtype)
+        out[dtype] = dryrun_body(dist.get_world_size(), cfg=cfg,
+                                 initial_params=params_from_flax(tree, cfg),
+                                 tokens=tokens)
     return out
