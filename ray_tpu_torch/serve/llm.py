@@ -14,6 +14,10 @@ the same; only the framework seams differ:
     engine-owned ``torch.Generator`` seeded from ``seed``;
   - the KV pools are updated in place (``index_copy_``) where the JAX
     engine donated them to jit;
+  - a chunked-prefill batch is shaped by the step's work, not padded to
+    the engine's maxima as the jitted stepper's is: a lane for each
+    sequence that prefills, rows to the longest chunk and a context to
+    the longest one, rounded up to a page;
   - paged decode runs the paged-attention CUDA kernel
     (ops/paged_attention.py) over block tables whose width snaps to the
     same power-of-four buckets; ``auto`` picks it only where the kernel
@@ -110,6 +114,15 @@ _SHIP = "ship"  # prefill-only sequence whose pages were just exported
 # prefix-index chain seed: block k's key hashes (parent key || block
 # tokens), so one digest equality implies the WHOLE prefix matches
 _PREFIX_SEED = b"rtpu-prefix-v1"
+
+# a prefill batch's rows are its longest chunk rounded up to this (and
+# capped at prefill_chunk): the pad stays under 16 rows, and a 256-row
+# chunk takes at most 16 row counts
+_PREFILL_ROW_STEP = 16
+
+
+def _round_up(n: int, step: int) -> int:
+    return -(-n // step) * step
 
 
 def _chain_hash(parent: bytes, block) -> bytes:
@@ -307,6 +320,11 @@ class LLMEngine:
         # two stats() snapshots)
         self._decode_steps = 0
         self._decode_secs = 0.0
+        # prefill-step accumulators; cells = lanes x rows x context
+        # width, the attention scores each prefill step computed
+        self._prefill_steps = 0
+        self._prefill_secs = 0.0
+        self._prefill_cells = 0
         # EWMA of one engine step's wall time — the deadline-admission
         # estimate of "prefill + one decode step" cost (0 until the
         # first measured step)
@@ -883,13 +901,23 @@ class LLMEngine:
         # LONG prompt shares the loop with in-flight decodes instead of
         # monopolizing it
         if prefill_args:
-            lanes = self.prefill_lanes
-            c = self.prefill_chunk
+            t_pre = time.perf_counter()
+            # the batch takes its shape from this step's work: a lane a
+            # prefilling sequence, rows to the longest chunk, context to
+            # the longest one (a whole page); the eager forward needs no
+            # fixed shape, and positions past a lane's hi only ever
+            # carried -1e30 into the softmax
+            lanes = len(prefill_args)
+            c = min(self.prefill_chunk, _round_up(
+                max(hi - lo for _s, lo, hi, *_r in prefill_args),
+                _PREFILL_ROW_STEP))
+            width = _round_up(max(hi for _s, _lo, hi, *_r in prefill_args),
+                              self.page_size)
             tokens = np.zeros((lanes, c), np.int32)
             slot_arr = np.zeros((lanes, c), np.int32)
-            ctx = np.zeros((lanes, self.ctx_len), np.int32)
-            ctx_pos = np.zeros((lanes, self.ctx_len), np.int32)
-            ctx_mask = np.zeros((lanes, self.ctx_len), bool)
+            ctx = np.zeros((lanes, width), np.int32)
+            ctx_pos = np.zeros((lanes, width), np.int32)
+            ctx_mask = np.zeros((lanes, width), bool)
             q_pos = np.zeros((lanes, c), np.int32)
             last_idx = np.zeros((lanes,), np.int32)
             for lane, (seq, lo, hi, toks, slots, ctx_slots) \
@@ -904,6 +932,9 @@ class LLMEngine:
             next_tok = self._forward(
                 tokens, slot_arr, ctx, ctx_pos, ctx_mask, q_pos,
                 last_idx).cpu().numpy()
+            self._prefill_steps += 1
+            self._prefill_secs += time.perf_counter() - t_pre
+            self._prefill_cells += lanes * c * width
             chunk_tokens = sum(hi - lo for _s, lo, hi, *_r in prefill_args)
             step_tokens += chunk_tokens
             with self._lock:
@@ -1104,6 +1135,9 @@ class LLMEngine:
                     "attention_impl": self.attention_impl,
                     "decode_steps": self._decode_steps,
                     "decode_secs": self._decode_secs,
+                    "prefill_steps": self._prefill_steps,
+                    "prefill_secs": self._prefill_secs,
+                    "prefill_cells": self._prefill_cells,
                     "queued": len(self._queued),
                     "active": len(self._active),
                     "cancelled": self._cancelled_total,

@@ -195,6 +195,33 @@ def test_engine_paged_and_dense_agree_on_gpu(cuda):
     assert dense.generate_batch([dict(r) for r in reqs]) == out
 
 
+def test_engine_prefills_together_what_it_prefills_alone_on_gpu(cuda):
+    """fp32 prompts of four lengths prefilled in one step (four lanes,
+    rows and context to the longest) give the first tokens each gives
+    prefilled by an engine of its own."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = LlamaConfig(vocab_size=64, dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=2, hidden_dim=128, max_seq_len=64,
+                      dtype=torch.float32)
+    kw = dict(device=cuda, page_size=8, num_pages=33, max_batch=4,
+              prefill_chunk=32)
+    prompts = [[5, 9, 3], list(range(1, 21)), [3] * 13,
+               list(range(30, 56))]
+    together = LLMEngine(cfg, **kw)
+    seqs = [together.submit({"tokens": p, "max_new_tokens": 1})
+            for p in prompts]
+    together.step()
+    st = together.stats()
+    assert st["prefill_steps"] == 1 and all(s.done for s in seqs)
+    assert st["prefill_cells"] == 4 * 32 * 32   # rows 26 -> 32, hi 26 -> 32
+    params = together._model.state_dict()
+    for p, s in zip(prompts, seqs):
+        alone = LLMEngine(cfg, params=params, **kw)
+        assert alone.generate_batch([{"tokens": p, "max_new_tokens": 1}]) \
+            == [list(s.generated)], p
+
+
 @pytest.mark.parametrize("head_dim", [32, 16])
 def test_engine_at_a_head_dim_the_kernel_refuses_serves_dense(cuda,
                                                               head_dim):

@@ -225,6 +225,79 @@ def test_paged_vs_dense_identical_tokens():
         dense.generate_batch([dict(r) for r in reqs])
 
 
+def _prefill_shapes(monkeypatch):
+    """Record (lanes, rows, context width) of every prefill forward."""
+    from ray_tpu_torch.models.llama import LlamaModel
+
+    seen, inner = [], LlamaModel.forward
+
+    def forward(self, tokens, cache=None, start_pos=0):
+        if cache is not None and "ctx" in cache:
+            seen.append((tokens.shape[0], tokens.shape[1],
+                         cache["ctx"].shape[1]))
+        return inner(self, tokens, cache, start_pos)
+
+    monkeypatch.setattr(LlamaModel, "forward", forward)
+    return seen
+
+
+BASE = list(range(1, 25))  # 3 full pages at page_size=8
+
+
+def _mixed_batch(engine, extra=()):
+    """BASE prefilled alone, then sequences admitted together: one over
+    BASE's three shared pages, one copy-on-write split inside BASE's
+    third page, two fresh prompts of other lengths, and ``extra``."""
+    first = engine.submit({"tokens": BASE, "max_new_tokens": 4})
+    while not first.generated:
+        engine.step()
+    prompts = [BASE + [40, 41, 42, 43, 44, 45],   # hi 30, lo 24
+               [5, 9, 3],                         # hi 3
+               [3] * 13,                          # hi 13
+               BASE[:20] + [60, 61, 62],          # CoW: lo 20, hi 23
+               *extra]
+    seqs = [engine.submit({"tokens": p, "max_new_tokens": 5})
+            for p in prompts]
+    return first, prompts, seqs
+
+
+def test_prefill_batch_takes_the_shape_of_its_work(monkeypatch):
+    """One step prefills four sequences of different lengths, two of
+    them over BASE's shared pages, with eight lanes allowed: the batch
+    has four lanes, rows to the longest chunk (13 -> 16) and a context
+    to the longest hi (30 -> 32, whole pages), not 8 x 32 x 64."""
+    eng = _port(prefill_lanes=8, prefill_chunk=32, max_batch=8)
+    seen = _prefill_shapes(monkeypatch)
+    _mixed_batch(eng)
+    assert seen == [(1, 32, 24)]   # BASE alone: 24 rows to 32, ctx 24
+    before = eng.stats()
+    eng.step()
+    after = eng.stats()
+    assert seen[1:] == [(4, 16, 32)], seen
+    assert after["prefix_hits"] - before["prefix_hits"] == 2
+    assert after["cow_splits"] - before["cow_splits"] == 1
+    assert after["prefill_steps"] - before["prefill_steps"] == 1
+    assert after["prefill_cells"] - before["prefill_cells"] == 4 * 16 * 32
+    assert after["prefill_secs"] > before["prefill_secs"]
+    assert before["prefill_cells"] == 1 * 32 * 24
+
+
+def test_mixed_prefill_batch_serves_the_uncached_argmax():
+    """Greedy streams from mixed-length prefill batches, with shared
+    pages and a copy-on-write split, one prompt chunked over three
+    steps, are the argmax of the uncached forward over each prompt and
+    its continuation."""
+    eng = _port(prefill_lanes=8, prefill_chunk=16, max_batch=8)
+    first, prompts, seqs = _mixed_batch(eng, extra=[[7] * 37])
+    _drain(eng)
+    _assert_greedy(eng, BASE, first.generated, n=4)
+    for p, s in zip(prompts, seqs):
+        _assert_greedy(eng, p, s.generated, n=5)
+    st = eng.stats()
+    assert st["prefix_hits"] == 2 and st["cow_splits"] == 1
+    assert st["used_pages"] == 0
+
+
 def test_attention_impl_validation():
     with pytest.raises(ValueError, match="auto\\|paged\\|dense"):
         _port(attention_impl="flashier")
