@@ -49,7 +49,7 @@ CartPole-shaped rollout against the same update on the CPU.  Then
 serving through that runtime, behind the HTTP proxy:
 the serve phase's engine and prompts in a ``num_gpus=1`` replica, as
 concurrent SSE streams (client TTFT, the replica's decode step, its
-paged launches counted inside it); 2 layers in fp32 through a replica,
+paged kernels counted by a profiler trace inside it); 2 layers in fp32 through a replica,
 bit for bit against the in-process engine; and disaggregated prefill,
 a prefill and a decode replica at ``num_gpus=0.5`` each on the one
 card, a 1000-token prompt's KV pack timed through the object store,
@@ -105,6 +105,16 @@ each stage layout given (four cards).
 
 runs ``dryrun_multichip`` alone over n cards (default: every visible
 one).
+
+    python3 chip_smoke.py --serve-only
+
+runs the paged kernel's check and the serve phases alone: in process,
+the fp32 identity, and through the runtime.
+
+The serve phases count the paged kernel's runs in a torch.profiler trace
+of the traffic (one ``paged_decode_split`` kernel a layer a decode step,
+eager or replayed from the engine's decode graphs), not by the wrapper's
+``LAUNCHES``, which a graph replay does not reach.
 """
 
 from __future__ import annotations
@@ -454,6 +464,51 @@ def phase_forward(gen) -> int:
     return launches
 
 
+def paged_split_kernels(prof) -> int:
+    """The paged split kernels a torch.profiler trace saw run, eager or
+    replayed from a CUDA graph: one a ``paged_attention`` call."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "paged_decode_split" in e.name)
+
+
+class PagedKernelTrace:
+    """A torch.profiler trace of this process's device kernels, held
+    open from construction to :meth:`stop` on a thread of its own (so
+    that the thread which stops it need not be the one that started
+    it); :meth:`stop` returns the paged split kernels it saw."""
+
+    def __init__(self):
+        import threading
+
+        self._started = threading.Event()
+        self._stop = threading.Event()
+        self._count = None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        self._started.wait()
+
+    def _run(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                self._started.set()
+                self._stop.wait()
+                torch.cuda.synchronize()
+            self._count = paged_split_kernels(prof)
+        finally:
+            self._started.set()
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join()
+        check(self._count is not None, "the kernel trace failed")
+        return self._count
+
+
 def phase_serve() -> tuple:
     from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -467,7 +522,7 @@ def phase_serve() -> tuple:
     rng = np.random.default_rng(SEED)
     prompts, late_prompt = _serve_prompts(cfg, rng)   # the last joins late
     max_new = SERVE_NEW_TOKENS
-    pa.LAUNCHES = 0
+    trace = PagedKernelTrace()
     t0 = time.perf_counter()
     seqs = [eng.submit({"tokens": p, "max_new_tokens": max_new})
             for p in prompts]
@@ -483,8 +538,8 @@ def phase_serve() -> tuple:
         check(steps < 10_000, "serve did not finish")
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
+    launches = trace.stop()
     st = eng.stats()
-    launches = pa.LAUNCHES
     for s in seqs:
         check(len(s.generated) == max_new and s.error is None,
               f"{s.request_id}: {len(s.generated)} tokens, {s.error}")
@@ -493,7 +548,7 @@ def phase_serve() -> tuple:
     check(st["used_pages"] == 0, f"pages not recycled: {st}")
     check(st["prefix_hits"] >= 1, f"no prefix hit: {st}")
     check(launches == cfg.n_layers * st["decode_steps"],
-          f"paged launches {launches} != {cfg.n_layers} x "
+          f"paged kernels {launches} != {cfg.n_layers} x "
           f"{st['decode_steps']}")
     decode_tokens = sum(len(s.generated) - 1 for s in seqs)
     ttft = [s.first_token_at - s.submitted_at for s in seqs]
@@ -507,6 +562,7 @@ def phase_serve() -> tuple:
          decode_tokens_per_s=decode_tokens / st["decode_secs"],
          ttft_s=ttft, ttft_median_s=statistics.median(ttft),
          paged_launches=launches,
+         decode_graph_replays=st["decode_graph_replays"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          stats=st)
     phase_decode_profile(eng, rng)
@@ -2225,16 +2281,19 @@ SERVE_TIMEOUT_S = 600
 
 
 class CountedLLM(_LLMCallable):
-    """The ``llm_deployment`` replica target with the paged kernel's
-    launch count of its own process: set to 0 and read around the
-    traffic, with the engine's stats at each end."""
+    """The ``llm_deployment`` replica target with the paged kernels its
+    own process ran, from a profiler trace started and stopped around
+    the traffic (None where none was started), with the engine's stats
+    at each end."""
 
     def reset_launches(self) -> dict:
-        pa.LAUNCHES = 0
+        self._trace = PagedKernelTrace()
         return self._engine.stats()
 
     def launches(self) -> dict:
-        return {"paged_launches": pa.LAUNCHES,
+        trace = getattr(self, "_trace", None)
+        self._trace = None
+        return {"paged_launches": trace.stop() if trace else None,
                 "stats": self._engine.stats(),
                 "device": str(self._engine.device),
                 "device_name": torch.cuda.get_device_name()
@@ -2418,7 +2477,7 @@ def phase_serve_runtime(addr, inprocess: dict) -> int:
     check(st["prefix_hits"] > st0["prefix_hits"],
           f"serve_runtime: no prefix hit {st}")
     check(steps > 0 and launches == cfg.n_layers * steps,
-          f"serve_runtime: paged launches {launches} != {cfg.n_layers} x "
+          f"serve_runtime: paged kernels {launches} != {cfg.n_layers} x "
           f"{steps}")
     check(after["device"].startswith("cuda")
           and after["cuda_visible_devices"],
@@ -2530,7 +2589,7 @@ def phase_serve_disagg(addr, plain_tokens: list) -> int:
     steps = std["stats"]["decode_steps"] - before["decode_steps"]
     launches = std["paged_launches"]
     check(steps > 0 and launches == cfg.n_layers * steps,
-          f"serve_disagg: decode replica's paged launches {launches} != "
+          f"serve_disagg: decode replica's paged kernels {launches} != "
           f"{cfg.n_layers} x {steps}")
     for side, info in (("decode", std), ("prefill", stp)):
         check(info["device"].startswith("cuda")
@@ -3178,6 +3237,15 @@ def main(argv) -> int:
     if argv[:1] == ["--dryrun-only"]:
         # the dry run alone, over n cards (default: every visible one)
         phase_dryrun_multichip(int(argv[1]) if argv[1:] else None)
+        _finish(smi)
+        return 0
+    if argv[:1] == ["--serve-only"]:
+        # the paged kernel's check and the serve phases alone
+        phase_kernel_paged(gen)
+        paged_launches, served = phase_serve()
+        phase_serve_identity()
+        paged_launches += phase_serving(served)
+        emit("serve_only", paged_launches=paged_launches)
         _finish(smi)
         return 0
     if argv[:1] == ["--pipeline-mesh-only"]:

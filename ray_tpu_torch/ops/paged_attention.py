@@ -25,7 +25,10 @@ On a CPU tensor :func:`paged_attention` computes the plain version
 raises.  :func:`paged_partials_ref` and :func:`paged_merge_ref` are the
 plain versions of the split and the merge.  ``LAUNCHES`` counts wrapper
 calls that launched the kernels (one split and one merge launch each):
-one per layer per decode step.
+one per layer per eager decode step.  A call while the current stream
+captures a CUDA graph launches nothing and is not counted, and a replay
+runs the graph's kernels without calling the wrapper; a profiler trace
+counts those (one ``paged_decode_split`` kernel a call).
 """
 
 from __future__ import annotations
@@ -226,5 +229,6 @@ def paged_attention(q: torch.Tensor, pool_k: torch.Tensor,
                 hkv, h // hkv, d, width, page_size, SPLIT_ROWS, splits,
                 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16), stream)
     _build.check(_SOURCE, rc, "paged_attention kernel")
-    LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES += 1
     return out

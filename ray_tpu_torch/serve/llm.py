@@ -21,7 +21,11 @@ the same; only the framework seams differ:
   - paged decode runs the paged-attention CUDA kernel
     (ops/paged_attention.py) over block tables whose width snaps to the
     same power-of-four buckets; ``auto`` picks it only where the kernel
-    takes the model's shape (:func:`resolve_attention_impl`);
+    takes the model's shape (:func:`resolve_attention_impl`).  On a
+    card the paged decode forward is captured at construction as one
+    CUDA graph per width bucket over static input buffers, and each
+    decode step replays one (:meth:`LLMEngine._capture_decode_graphs`)
+    where the jitted stepper ran one compiled program per bucket;
   - a disaggregated KV pack carries the host tensors of
     ``gather_kv_slots``; the decode replica's ``scatter_kv_slots`` moves
     them onto its own device.
@@ -123,6 +127,59 @@ _PREFILL_ROW_STEP = 16
 
 def _round_up(n: int, step: int) -> int:
     return -(-n // step) * step
+
+
+def _paged_decode_views(buf, batch: int, width: int) -> tuple:
+    """The inputs of a paged decode step as views of one flat int32
+    buffer of ``4 * batch + batch * width`` entries: tokens, slots and
+    q_pos [batch, 1], context_lens [batch], block_tables [batch, width].
+    One layout serves a numpy array and a host or device tensor."""
+    b = batch
+    return (buf[:b].reshape(b, 1), buf[b:2 * b].reshape(b, 1),
+            buf[2 * b:3 * b].reshape(b, 1), buf[3 * b:4 * b],
+            buf[4 * b:].reshape(b, width))
+
+
+def _pack_paged_decode(lanes, batch: int, width: int, page_size: int,
+                       out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Fill the flat buffer of :func:`_paged_decode_views` (``out``, or
+    a new one) for one paged decode step.  ``lanes`` holds a (last
+    token, its slot, block table, context length n) per decoding
+    sequence; lane i gets the sequence's token at position n - 1, its
+    n positions and the table's first ceil(n / page_size) pages.  The
+    lanes past them keep token 0, slot 0 (the garbage slot), position
+    0, context length 0 and a table of page 0."""
+    if out is None:
+        out = np.zeros(4 * batch + batch * width, np.int32)
+    else:
+        out.fill(0)
+    tokens, slots, q_pos, context_lens, tables = _paged_decode_views(
+        out, batch, width)
+    for lane, (_tok, _slot, table, n) in enumerate(lanes):
+        used = -(-n // page_size)
+        tables[lane, :used] = table[:used]
+    if lanes:
+        k = len(lanes)
+        tok, slot, _tables, n = zip(*lanes)
+        tokens[:k, 0] = tok
+        slots[:k, 0] = slot
+        context_lens[:k] = n
+        q_pos[:k, 0] = context_lens[:k] - 1
+    return out
+
+
+class _DecodeGraph:
+    """The paged decode forward captured at one block-table width: the
+    pinned staging buffer the host packs, the device buffer the graph
+    reads, the graph and its output (next tokens, or the picked logits
+    of a sampling engine)."""
+
+    __slots__ = ("width", "host", "host_np", "dev", "graph", "out")
+
+    def __init__(self, width, host, dev, graph, out):
+        self.width, self.host, self.dev = width, host, dev
+        self.host_np = host.numpy()
+        self.graph, self.out = graph, out
 
 
 def _chain_hash(parent: bytes, block) -> bytes:
@@ -267,6 +324,9 @@ class LLMEngine:
                 params = params_from_flax(params, cfg)
             self._model.load_state_dict(params)
         self._model.eval()
+        # made once and updated in place, never reallocated (save/restore
+        # re-queues sequences, it does not rebuild the pools): the decode
+        # graphs hold these pools' addresses
         self._pools = make_kv_pools(cfg, self.num_pages * self.page_size,
                                     device=self.device)
         # temperature == 0 (the default) is exact greedy argmax; > 0
@@ -320,6 +380,10 @@ class LLMEngine:
         # two stats() snapshots)
         self._decode_steps = 0
         self._decode_secs = 0.0
+        # paged decode graphs by block-table width (a card only), and
+        # the decode steps a replay served
+        self._decode_graphs: Dict[int, _DecodeGraph] = {}
+        self._decode_graph_replays = 0
         # prefill-step accumulators; cells = lanes x rows x context
         # width, the attention scores each prefill step computed
         self._prefill_steps = 0
@@ -498,30 +562,28 @@ class LLMEngine:
 
     @torch.no_grad()
     def _forward(self, tokens, slot_arr, ctx, ctx_pos, ctx_mask, q_pos,
-                 last_idx, block_tables=None, context_lens=None
-                 ) -> torch.Tensor:
-        """One eager forward over the paged cache -> next tokens at
-        ``last_idx`` (a device tensor; the pools update in place).  The
-        host arrays move to the engine's device here, every step; slot
-        and context indices become int64, which torch indexing needs.
-
-        Context comes in one of two forms: dense ``ctx``/``ctx_pos``/
-        ``ctx_mask`` gather arrays (chunked prefill, dense decode), or
-        page-granular ``block_tables`` + ``context_lens`` routing decode
-        through the paged-attention kernel."""
+                 last_idx) -> torch.Tensor:
+        """One eager forward over the paged cache through dense
+        ``ctx``/``ctx_pos``/``ctx_mask`` gather arrays (chunked prefill,
+        dense decode) -> next tokens at ``last_idx`` (a device tensor;
+        the pools update in place).  The host arrays move to the
+        engine's device here, every step; slot and context indices
+        become int64, which torch indexing needs."""
         cache = {"k": self._pools["k"], "v": self._pools["v"],
                  "slots": self._to_device(slot_arr, torch.int64),
-                 "q_pos": self._to_device(q_pos)}
-        if block_tables is not None:
-            cache["block_tables"] = self._to_device(block_tables)
-            cache["context_lens"] = self._to_device(context_lens)
-        else:
-            cache.update(ctx=self._to_device(ctx, torch.int64),
-                         ctx_pos=self._to_device(ctx_pos),
-                         ctx_mask=self._to_device(ctx_mask))
+                 "q_pos": self._to_device(q_pos),
+                 "ctx": self._to_device(ctx, torch.int64),
+                 "ctx_pos": self._to_device(ctx_pos),
+                 "ctx_mask": self._to_device(ctx_mask)}
         logits, _pools = self._model(self._to_device(tokens), cache)
         lanes = torch.arange(logits.shape[0], device=self.device)
-        picked = logits[lanes, self._to_device(last_idx, torch.int64)]
+        return self._pick(
+            logits[lanes, self._to_device(last_idx, torch.int64)])
+
+    def _pick(self, picked: torch.Tensor) -> torch.Tensor:
+        """Next tokens from each lane's logits [B, V]: greedy argmax, or
+        a draw from this engine's generator after temperature and
+        top-k."""
         if self.temperature <= 0.0:
             return torch.argmax(picked, dim=-1)
         scaled = picked.float() / self.temperature
@@ -543,15 +605,80 @@ class LLMEngine:
             w *= 4
 
     def _warm_paged_buckets(self) -> None:
-        """Build and load the paged-attention kernel library before any
-        request arrives: a first-use ``nvcc`` run would otherwise stall
-        the first decode step of a deadlined request.  The kernel takes
-        the table width as a run-time argument, so unlike the jitted
-        reference no per-bucket compile remains to warm."""
-        if self.device.type == "cuda":
-            from ray_tpu_torch.ops import paged_attention
+        """On a card, build and load the paged-attention kernel library
+        and capture every width bucket's decode graph before any request
+        arrives: a first-use ``nvcc`` run or capture would otherwise
+        stall a decode step of a request in flight.  Where the kernel
+        does not take the model's shape no graph is captured, and an
+        explicit ``paged`` engine raises at its first decode step."""
+        if self.device.type != "cuda":
+            return
+        from ray_tpu_torch.ops import paged_attention as pa
 
-            paged_attention.load_kernel()
+        pa.load_kernel()
+        cfg = self.cfg
+        if pa.kernel_takes(cfg.head_dim, cfg.n_heads // cfg.n_kv_heads,
+                           cfg.dtype):
+            with torch.cuda.device(self.device):
+                self._capture_decode_graphs()
+
+    @torch.no_grad()
+    def _paged_decode_forward(self, buf: torch.Tensor,
+                              width: int) -> torch.Tensor:
+        """The paged decode forward over ``buf``, the flat buffer of
+        :func:`_paged_decode_views` on the engine's device: next tokens
+        [B], or a sampling engine's picked logits [B, V], which
+        :meth:`_pick` draws from after it so that the generator runs
+        eagerly.  A card captures it in a graph per width; a CPU engine
+        runs it every step."""
+        tokens, slots, q_pos, context_lens, tables = _paged_decode_views(
+            buf, self.max_batch, width)
+        cache = {"k": self._pools["k"], "v": self._pools["v"],
+                 "slots": slots.long(), "q_pos": q_pos,
+                 "block_tables": tables, "context_lens": context_lens}
+        logits, _pools = self._model(tokens, cache)
+        picked = logits[:, 0]
+        return self._pick(picked) if self.temperature <= 0.0 else picked
+
+    def _capture_decode_graphs(self) -> None:
+        """Capture the paged decode forward once per width bucket as a
+        CUDA graph over static buffers of ``max_batch`` lanes, after a
+        warm-up on a side stream; the graphs share one memory pool, as
+        no two replay at once.  Every lane of the warm-up and the
+        capture is inactive: they write the garbage slot 0 and read
+        nothing."""
+        b = self.max_batch
+        pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        for width in self._paged_width_buckets():
+            n = 4 * b + b * width
+            host = torch.zeros(n, dtype=torch.int32, pin_memory=True)
+            dev = torch.zeros(n, dtype=torch.int32, device=self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._paged_decode_forward(dev, width)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = self._paged_decode_forward(dev, width)
+            self._decode_graphs[width] = _DecodeGraph(
+                width, host, dev, graph, out)
+
+    def _replay_decode(self, g: _DecodeGraph, lanes) -> torch.Tensor:
+        """One paged decode step through ``g``: pack the lanes into the
+        pinned buffer, one copy to the device and a replay on the
+        current stream, after whatever KV imports and copy-on-write
+        copies this step queued there.  The step's token read syncs
+        before the next pack reuses the buffer.  Returns the graph's
+        output (:meth:`_paged_decode_forward`)."""
+        _pack_paged_decode(lanes, self.max_batch, g.width, self.page_size,
+                           out=g.host_np)
+        g.dev.copy_(g.host, non_blocking=True)
+        g.graph.replay()
+        self._decode_graph_replays += 1
+        return g.out
 
     def _alloc_pages(self, n: int) -> List[int]:
         pages = self._free_pages[:n]
@@ -957,33 +1084,31 @@ class LLMEngine:
         # ---- token-level decode batch
         if decode_args:
             b = self.max_batch
-            tokens = np.zeros((b, 1), np.int32)
-            slot_arr = np.zeros((b, 1), np.int32)
-            q_pos = np.zeros((b, 1), np.int32)
-            last_idx = np.zeros((b,), np.int32)
             t_dec = time.perf_counter()
             if self.attention_impl == "paged":
                 # page-granular context: block tables + context lengths.
                 # The table width snaps to the smallest bucket covering
-                # the max used pages across lanes.
+                # the max used pages across lanes; on a card its graph
+                # replays
                 max_used = max(-(-n // self.page_size)
                                for *_a, n in decode_args)
                 width = next(w for w in self._paged_width_buckets()
                              if w >= max_used)
-                block_tables = np.zeros((b, width), np.int32)
-                context_lens = np.zeros((b,), np.int32)
-                for lane, (seq, last, slot, _ctx, table, n) \
-                        in enumerate(decode_args):
-                    tokens[lane, 0] = last
-                    slot_arr[lane, 0] = slot
-                    used = -(-n // self.page_size)
-                    block_tables[lane, :used] = table[:used]
-                    context_lens[lane] = n
-                    q_pos[lane, 0] = seq.pos
-                next_tok = self._forward(
-                    tokens, slot_arr, None, None, None, q_pos, last_idx,
-                    block_tables=block_tables, context_lens=context_lens)
+                lanes = [(last, slot, table, n)
+                         for _s, last, slot, _c, table, n in decode_args]
+                graph = self._decode_graphs.get(width)
+                if graph is not None:
+                    out = self._replay_decode(graph, lanes)
+                else:
+                    out = self._paged_decode_forward(self._to_device(
+                        _pack_paged_decode(lanes, b, width,
+                                           self.page_size)), width)
+                next_tok = out if self.temperature <= 0.0 \
+                    else self._pick(out)
             else:
+                tokens = np.zeros((b, 1), np.int32)
+                slot_arr = np.zeros((b, 1), np.int32)
+                q_pos = np.zeros((b, 1), np.int32)
                 ctx = np.zeros((b, self.ctx_len), np.int32)
                 ctx_pos = np.zeros((b, self.ctx_len), np.int32)
                 ctx_mask = np.zeros((b, self.ctx_len), bool)
@@ -997,7 +1122,7 @@ class LLMEngine:
                     q_pos[lane, 0] = seq.pos
                 next_tok = self._forward(
                     tokens, slot_arr, ctx, ctx_pos, ctx_mask, q_pos,
-                    last_idx)
+                    np.zeros((b,), np.int32))
             next_tok = next_tok.cpu().numpy()  # the one device sync
             decode_dt = time.perf_counter() - t_dec
             self._decode_steps += 1
@@ -1135,6 +1260,8 @@ class LLMEngine:
                     "attention_impl": self.attention_impl,
                     "decode_steps": self._decode_steps,
                     "decode_secs": self._decode_secs,
+                    "decode_graph_replays": self._decode_graph_replays,
+                    "decode_graph_captures": len(self._decode_graphs),
                     "prefill_steps": self._prefill_steps,
                     "prefill_secs": self._prefill_secs,
                     "prefill_cells": self._prefill_cells,

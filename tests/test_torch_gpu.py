@@ -173,9 +173,23 @@ def test_flash_backward_on_gpu_matches_dense(cuda):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+def _paged_split_kernels(prof) -> int:
+    """The paged split kernels a profiler trace saw run, eager or
+    replayed from a CUDA graph: one a paged_attention call."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "paged_decode_split" in e.name)
+
+
 def test_engine_paged_and_dense_agree_on_gpu(cuda):
     """fp32 greedy decode through the paged kernel equals the dense
-    path; the kernel runs once per layer per decode step."""
+    path; the kernel runs once per layer per decode step, by the
+    profiler's count, and the wrapper counts the steps it launched
+    eagerly (none: every decode step replays a graph)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = LlamaConfig(vocab_size=64, dim=256, n_layers=2, n_heads=4,
@@ -187,9 +201,13 @@ def test_engine_paged_and_dense_agree_on_gpu(cuda):
             {"tokens": list(range(1, 21)), "max_new_tokens": 6}]
     paged = LLMEngine(cfg, **kw)
     before = pa.LAUNCHES
-    out = paged.generate_batch([dict(r) for r in reqs])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = paged.generate_batch([dict(r) for r in reqs])
+        torch.cuda.synchronize()
+    st = paged.stats()
+    assert _paged_split_kernels(prof) == cfg.n_layers * st["decode_steps"]
     assert pa.LAUNCHES - before == \
-        cfg.n_layers * paged.stats()["decode_steps"]
+        cfg.n_layers * (st["decode_steps"] - st["decode_graph_replays"])
     dense = LLMEngine(cfg, params=paged._model.state_dict(),
                       attention_impl="dense", **kw)
     assert dense.generate_batch([dict(r) for r in reqs]) == out
@@ -252,6 +270,162 @@ def test_engine_at_a_head_dim_the_kernel_refuses_serves_dense(cuda,
                       attention_impl="paged", **kw)
     with pytest.raises(ValueError, match="head_dim"):
         paged.generate_batch([dict(reqs[0])])
+
+
+GRAPH_CFG = dict(vocab_size=64, dim=256, n_layers=2, n_heads=4,
+                 n_kv_heads=2, hidden_dim=128, max_seq_len=64)
+# 16 pages of 4 a sequence: the width buckets are 4 and 16
+GRAPH_KW = dict(page_size=4, num_pages=65, max_batch=4, prefill_chunk=8)
+
+
+def _graphed_and_dense(dev, dtype=torch.float32, **kw):
+    """A paged engine on the card, which replays its decode graphs, and
+    an eager dense engine with the same weights."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = LlamaConfig(dtype=dtype, **GRAPH_CFG)
+    kw = {**GRAPH_KW, **kw}
+    graphed = LLMEngine(cfg, device=dev, **kw)
+    assert graphed.stats()["decode_graph_captures"] == 2
+    dense = LLMEngine(cfg, params=graphed._model.state_dict(), device=dev,
+                      attention_impl="dense", **kw)
+    assert dense.stats()["decode_graph_captures"] == 0
+    return graphed, dense
+
+
+def _drain(engine, rounds=300):
+    for _ in range(rounds):
+        if not engine.step():
+            return
+
+
+def _all_replayed(engine):
+    st = engine.stats()
+    assert st["decode_steps"] > 0
+    assert st["decode_graph_replays"] == st["decode_steps"], st
+
+
+def _greedy_within(engine, prompt, generated):
+    """Each generated token's logit under the no-cache forward over the
+    prompt and the tokens before it is within the file's tolerance for
+    the dtype of the best logit at its position."""
+    atol, rtol = TOL[engine.cfg.dtype]
+    full = torch.tensor([list(prompt) + list(generated)], dtype=torch.int32,
+                        device=engine.device)
+    with torch.no_grad():
+        lg = engine._model(full)[0].float()
+    for j, tok in enumerate(generated):
+        row = lg[len(prompt) + j - 1]
+        best = float(row.max())
+        assert best - float(row[tok]) <= atol + rtol * abs(best), (j, tok)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_graphed_decode_crosses_a_width_bucket_on_gpu(cuda, dtype):
+    """Contexts that grow from 4 pages past 4 mid-stream move the step
+    from the width-4 graph to the width-16 one; every decode step is a
+    replay.  fp32 gives exactly the dense engine's greedy tokens; bf16
+    gives a token within the bf16 tolerance of the best at each
+    position."""
+    graphed, dense = _graphed_and_dense(cuda, dtype)
+    reqs = [{"tokens": list(range(3, 17)), "max_new_tokens": 12},
+            {"tokens": [5, 9, 3], "max_new_tokens": 20},
+            {"tokens": [7] * 10, "max_new_tokens": 9}]
+    out = graphed.generate_batch([dict(r) for r in reqs])
+    _all_replayed(graphed)
+    assert graphed.stats()["used_pages"] == 0
+    if dtype == torch.float32:
+        assert dense.generate_batch([dict(r) for r in reqs]) == out
+    else:
+        for r, o in zip(reqs, out):
+            assert len(o) == r["max_new_tokens"]
+            _greedy_within(graphed, r["tokens"], o)
+
+
+def _cow_pair(engine):
+    """A prompt of three pages, then one that shares its first two and
+    diverges inside the third (a copy-on-write split), decoding
+    together."""
+    base = list(range(1, 13))
+    s1 = engine.submit({"tokens": base, "max_new_tokens": 10})
+    for _ in range(3):
+        engine.step()
+    s2 = engine.submit({"tokens": base[:10] + [40, 41, 42],
+                        "max_new_tokens": 10})
+    _drain(engine)
+    assert engine.stats()["cow_splits"] == 1
+    return [list(s1.generated), list(s2.generated)]
+
+
+def test_graphed_decode_after_a_copy_on_write_split_on_gpu(cuda):
+    graphed, dense = _graphed_and_dense(cuda)
+    assert _cow_pair(graphed) == _cow_pair(dense)
+    _all_replayed(graphed)
+
+
+def _cancel_one(engine):
+    """Three sequences decode; the second is cancelled after four decode
+    steps and the others go on."""
+    seqs = [engine.submit({"tokens": p, "max_new_tokens": 12})
+            for p in ([5, 9, 3], list(range(20, 31)), [2] * 6)]
+    while engine.stats()["decode_steps"] < 4:
+        engine.step()
+    assert engine.cancel(seqs[1].request_id)
+    _drain(engine)
+    assert engine.stats()["used_pages"] == 0
+    return [list(s.generated) for s in seqs]
+
+
+def test_graphed_decode_goes_on_after_a_cancel_on_gpu(cuda):
+    graphed, dense = _graphed_and_dense(cuda)
+    got = _cancel_one(graphed)
+    assert got == _cancel_one(dense)
+    assert len(got[0]) == len(got[2]) == 12 and len(got[1]) < 12
+    _all_replayed(graphed)
+
+
+def test_graphed_decode_of_an_imported_kv_pack_on_gpu(cuda):
+    """A KV pack exported by ``prefill_request`` is scattered eagerly
+    before the replay that reads it: the decode engine gives the tokens
+    a dense engine gives after its own prefill."""
+    graphed, dense = _graphed_and_dense(cuda)
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    prefill = LLMEngine(graphed.cfg, params=graphed._model.state_dict(),
+                        device=cuda, **GRAPH_KW)
+    prompt = list(range(2, 21))
+    req = {"tokens": prompt, "max_new_tokens": 8, "request_id": "ship"}
+    payload = prefill.prefill_request(dict(req))
+    s = graphed.submit(dict(req), kv_pack=(payload["meta"],
+                                            payload["rows"]))
+    _drain(graphed)
+    assert graphed.stats()["kv_pages_shipped_in"] == 5
+    assert dense.generate_batch([dict(req)]) == [list(s.generated)]
+    _all_replayed(graphed)
+
+
+def test_graphed_sampling_replays_its_seeded_stream_on_gpu(cuda):
+    """A sampling engine's graph ends at the picked logits and draws
+    eagerly from the engine's generator: one seed gives one stream,
+    each token among the five best at its position."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = LlamaConfig(dtype=torch.float32, **GRAPH_CFG)
+    req = {"tokens": [5, 9, 3], "max_new_tokens": 16}
+    streams = []
+    for _ in range(2):
+        eng = LLMEngine(cfg, device=cuda, seed=7, temperature=0.8, top_k=5,
+                        **GRAPH_KW)
+        streams.append(eng.generate_batch([dict(req)])[0])
+        _all_replayed(eng)
+    assert streams[0] == streams[1] and len(streams[0]) == 16
+    full = torch.tensor([req["tokens"] + streams[0]], dtype=torch.int32,
+                        device=cuda)
+    with torch.no_grad():
+        lg = eng._model(full)[0]
+    for j, tok in enumerate(streams[0]):
+        top5 = set(lg[len(req["tokens"]) + j - 1].topk(5).indices.tolist())
+        assert tok in top5, (j, tok, top5)
 
 
 def test_train_step_on_gpu_loss_falls(cuda):

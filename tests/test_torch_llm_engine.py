@@ -11,6 +11,7 @@ bit, so they are held to same-seed replay and top-k membership.
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,7 +25,8 @@ from ray_tpu_torch._private import deadlines
 from ray_tpu_torch._private.errors import DeadlineExceededError
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import paged_attention as tpa
-from ray_tpu_torch.serve.llm import LLMEngine, LLMOverloadedError
+from ray_tpu_torch.serve.llm import (LLMEngine, LLMOverloadedError,
+                                     _pack_paged_decode, _paged_decode_views)
 
 force_cpu_jax()
 torch.set_num_threads(2)   # six xdist workers share the test machine
@@ -296,6 +298,67 @@ def test_mixed_prefill_batch_serves_the_uncached_argmax():
     st = eng.stats()
     assert st["prefix_hits"] == 2 and st["cow_splits"] == 1
     assert st["used_pages"] == 0
+
+
+def _decode_loop_arrays(decode_args, b, width, page_size):
+    """The paged decode step's arrays as the step loop built them
+    before the staging pack: one numpy array each."""
+    tokens = np.zeros((b, 1), np.int32)
+    slot_arr = np.zeros((b, 1), np.int32)
+    q_pos = np.zeros((b, 1), np.int32)
+    block_tables = np.zeros((b, width), np.int32)
+    context_lens = np.zeros((b,), np.int32)
+    for lane, (pos, last, slot, table, n) in enumerate(decode_args):
+        tokens[lane, 0] = last
+        slot_arr[lane, 0] = slot
+        used = -(-n // page_size)
+        block_tables[lane, :used] = table[:used]
+        context_lens[lane] = n
+        q_pos[lane, 0] = pos
+    return tokens, slot_arr, q_pos, block_tables, context_lens
+
+
+@pytest.mark.parametrize("width", [4, 16, 64, 256])
+@pytest.mark.parametrize("lanes", ["full", "partial", "empty"])
+def test_decode_staging_pack_matches_the_step_loop(width, lanes):
+    """The host staging pack of a paged decode step gives exactly the
+    tokens, slots, positions, block tables and context lengths the step
+    loop built, for every width bucket of a 4096-position engine at
+    page size 16, with every lane, some or none decoding."""
+    b, ps = 64, 16
+    k = {"full": b, "partial": 23, "empty": 0}[lanes]
+    rng = np.random.default_rng(width * 100 + k)
+    args = []
+    for _ in range(k):
+        # at least one lane fills the bucket, so it is the step's width
+        n = int(rng.integers(1, width * ps + 1)) if args \
+            else width * ps - int(rng.integers(0, ps))
+        table = [int(p) for p in rng.integers(
+            1, 1 + b * 256, size=int(rng.integers(-(-n // ps), 257)))]
+        args.append((n - 1, int(rng.integers(0, 1 << 20)),
+                     int(rng.integers(1, b * 256 * ps)), table, n))
+    buf = _pack_paged_decode([(last, slot, table, n)
+                              for _p, last, slot, table, n in args],
+                             b, width, ps)
+    assert buf.dtype == np.int32 and buf.shape == (4 * b + b * width,)
+    tokens, slots, q_pos, context_lens, tables = _paged_decode_views(
+        buf, b, width)
+    want = _decode_loop_arrays(args, b, width, ps)
+    for got, ref in zip((tokens, slots, q_pos, tables, context_lens), want):
+        assert got.shape == ref.shape and np.array_equal(got, ref)
+    # a reused buffer is cleared first: the lanes that left read zeros
+    again = _pack_paged_decode([], b, width, ps, out=buf)
+    assert again is buf and not buf.any()
+
+
+def test_cpu_engine_replays_no_decode_graph():
+    """The graph path is for a card: a CPU engine captures no graph and
+    serves every decode step eagerly."""
+    eng = _port()
+    _staggered(eng)
+    st = eng.stats()
+    assert st["decode_steps"] > 0
+    assert st["decode_graph_replays"] == st["decode_graph_captures"] == 0
 
 
 def test_attention_impl_validation():
